@@ -1,12 +1,16 @@
 # Convenience targets (parity with the reference's wrapper Makefile role).
 
-.PHONY: test test-tpu bench report native clean
+.PHONY: test test-gpu smoke bench report native clean
 
 test:
 	python -m pytest tests/ -q
 
-test-tpu:
-	SSIM_TPU_TEST_TPU=1 python -m pytest tests/ -q --ignore=tests/test_distributed.py
+# The tests marked `gpu`, compiled on a card; one process for the card.
+test-gpu:
+	JAX_PLATFORMS=cuda python -m pytest tests/ -q -m gpu -p no:xdist
+
+smoke:
+	python chip_smoke.py
 
 bench:
 	python bench.py

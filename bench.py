@@ -1,88 +1,79 @@
-"""Benchmark: global-SSIM throughput, real TPU.
+"""Benchmark: SSIM throughput on the GPU.
 
-Prints ONE JSON line: {"metric", "value", "unit", "vs_baseline"} — the
-best standard single-chip config (the reference's README headline is
-likewise its best config). Per-config numbers go to stderr diagnostics.
-Baseline: the reference's best full-machine number, 232.4 Mpix/s
-(FMA + OpenMP, no map — reference README.md:48, mirrored in BASELINE.md).
+Prints ONE JSON line naming the device (platform, device_kind, count),
+every cell's rate in Mpix/s, and the best forward cell as the headline
+against the reference's best full-machine number, 232.4 Mpix/s (FMA +
+OpenMP, no map — reference README.md:48, mirrored in BASELINE.md).
+Exits non-zero when there is no GPU or when any cell fails; a failed
+cell is listed on stderr, never reported as a number.
 
-Methodology: ssim_tpu/testing/devicebench.py — on-device lax.fori_loop
-with a carried, in-place-perturbed input; long/short-loop deltas,
-min-of-3 timings per length, MEDIAN of reps. See that module's docstring
-for why each piece exists on an RPC-attached TPU.
+Cells pair the dispatch-chosen forward ("auto": the fused kernel on the
+GPU) with the XLA formulation at the same shapes, so the kernel's gain
+is read in one run. Methodology: ssim_tpu/testing/devicebench.py.
 """
 
 import json
 import sys
 
-from ssim_tpu.testing.devicebench import device_throughput
+SHAPES = {
+    "1080_b8": dict(batch=8, h=1080, w=1920),
+    "4k_b4": dict(batch=4, h=2160, w=3840),
+    "8k_b1": dict(batch=1, h=4320, w=7680),
+    "128sq_b1024": dict(batch=1024, h=128, w=128),
+}
+
+
+def cells():
+    for name, shape in SHAPES.items():
+        for impl in ("auto", "xla"):
+            yield f"{impl}_{name}_nomap", dict(impl=impl, **shape)
+    for impl in ("auto", "xla"):
+        yield f"{impl}_1080_b8_map", dict(impl=impl, with_map=True,
+                                          **SHAPES["1080_b8"])
+    yield "grad_1080_b4", dict(impl="grad", batch=4, h=1080, w=1920, iters=32)
+    yield "grad_xla_1080_b4", dict(impl="grad_xla", batch=4, h=1080, w=1920,
+                                   iters=32)
+    yield "msssim_1080_b4", dict(impl="msssim", batch=4, h=1080, w=1920,
+                                 iters=32)
 
 
 def main():
-    from ssim_tpu.config import enable_compile_cache
+    import jax
 
-    enable_compile_cache()  # best-effort; skips recompiles on repeat runs
-    results = {}
-    for name, kwargs in [
-        ("pallas_4k_nomap", dict(impl="pallas", with_map=False, batch=4, h=2160, w=3840, iters=128)),
-        ("pallas_4k_map", dict(impl="pallas", with_map=True, batch=4, h=2160, w=3840, iters=128)),
-        ("pallas_1080_nomap", dict(impl="pallas", with_map=False)),
-        ("pallas_1080_map", dict(impl="pallas", with_map=True)),
-        ("pallas_8k_nomap", dict(impl="pallas", with_map=False, batch=1, h=4320, w=7680, iters=64)),
-        # 16K UHD (15360x8640) rides the round-4 widened fast path in ONE
-        # full-width tile per row block (TILE_W=16384); 132 Mpix/call.
-        ("pallas_16k_nomap", dict(impl="pallas", with_map=False, batch=1, h=8640, w=15360, iters=16)),
-        ("pallas_4k_f64mode", dict(impl="pallas", with_map=False, batch=4, h=2160, w=3840, iters=64, precise=True)),
-        # f32 inputs through the same compensated df32 tier (round-4:
-        # the precision="f64" cliff fix routes float images to the
-        # kernel instead of the host oracle).
-        ("pallas_4k_f64_float", dict(impl="pallas", with_map=False, batch=4, h=2160, w=3840, iters=64, precise=True, float_input=True, call_kwargs={"allow_float": True})),
-        # Opt-in loose-accuracy tier (accuracy="relaxed"): bf16-split
-        # MXU blurs on wide images. Diagnostic only - NOT headline-
-        # eligible (its error tier is outside the reference's f32 one).
-        ("pallas_4k_relaxed", dict(impl="pallas", with_map=False, batch=4, h=2160, w=3840, iters=128, relaxed=True)),
-        # Small-image batches (thumbnail/codec-QA shapes), impl="auto" so
-        # the full routing runs: 64^2 tracks the lane-PACKED path (small
-        # non-128-multiple), 128^2 tracks the roll lane mode (multiple).
-        ("auto_64sq_b4096", dict(impl="auto", with_map=False, batch=4096, h=64, w=64, iters=32)),
-        ("auto_128sq_b1024", dict(impl="auto", with_map=False, batch=1024, h=128, w=128, iters=64)),
-        # With-map and f64 variants of the small-image configs, so
-        # regressions in the newer paths stay driver-visible (the packed
-        # path has no map/f64 mode — these track the standard-path
-        # fallbacks those calls take).
-        ("auto_128sq_b1024_map", dict(impl="auto", with_map=True, batch=1024, h=128, w=128, iters=48)),
-        ("auto_64sq_b4096_f64", dict(impl="auto", with_map=False, batch=4096, h=64, w=64, iters=16, precise=True)),
-        # Fused analytic backward kernel (ops/ssim_grad.py) and the
-        # 5-scale MS-SSIM pyramid.
-        ("grad_1080_b4", dict(impl="grad", batch=4, h=1080, w=1920, iters=48)),
-        ("grad_1080_b4_relaxed", dict(impl="grad", batch=4, h=1080, w=1920, iters=48, relaxed=True)),
-        ("msssim_1080_b4", dict(impl="msssim", batch=4, h=1080, w=1920, iters=48)),
-        ("xla_1080_nomap", dict(impl="xla", with_map=False, iters=24)),
-    ]:
+    devs = jax.devices()
+    if devs[0].platform != "gpu":
+        print(f"bench: needs a GPU, JAX found {devs[0].platform}",
+              file=sys.stderr)
+        return 1
+
+    from ssim_tpu.config import enable_compile_cache
+    from ssim_tpu.testing.devicebench import device_throughput
+
+    enable_compile_cache()
+    results, failed = {}, []
+    for name, kwargs in cells():
         try:
             results[name] = device_throughput(**kwargs)
-        except Exception as e:  # pragma: no cover
-            print(f"bench {name} failed: {type(e).__name__}: {str(e)[:300]}", file=sys.stderr)
-            results[name] = 0.0
-    print(
-        f"diagnostics: {json.dumps({k: round(v, 1) for k, v in results.items()})} Mpix/s",
-        file=sys.stderr,
-    )
-    best = max(results["pallas_4k_nomap"], results["pallas_1080_nomap"],
-               results["pallas_8k_nomap"], results["pallas_16k_nomap"],
-               results["xla_1080_nomap"])
+        except Exception as e:  # report every failed cell, then fail
+            print(f"bench {name} failed: {type(e).__name__}: {str(e)[:300]}",
+                  file=sys.stderr)
+            failed.append(name)
+    if failed:
+        print(f"bench: failed cells: {failed}", file=sys.stderr)
+        return 1
+    best = max(v for k, v in results.items() if k.startswith("auto_"))
     baseline = 232.4  # reference FMA+OpenMP no-map Mpix/s (README.md:48)
-    print(
-        json.dumps(
-            {
-                "metric": "ssim_throughput",
-                "value": round(best, 1),
-                "unit": "Mpix/s",
-                "vs_baseline": round(best / baseline, 2),
-            }
-        )
-    )
+    print(json.dumps({
+        "metric": "ssim_throughput",
+        "value": best,
+        "unit": "Mpix/s",
+        "vs_baseline": best / baseline,
+        "device": {"platform": devs[0].platform,
+                   "kind": devs[0].device_kind, "count": len(devs)},
+        "cells": results,
+    }))
+    return 0
 
 
 if __name__ == "__main__":
-    main()
+    sys.exit(main())

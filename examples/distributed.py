@@ -1,6 +1,6 @@
 """Distributed SSIM over a device mesh.
 
-Run on a multi-chip TPU slice, or simulate locally:
+Run on a multi-GPU host, or simulate locally:
     XLA_FLAGS=--xla_force_host_platform_device_count=8 JAX_PLATFORMS=cpu \
         python examples/distributed.py
 """

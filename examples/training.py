@@ -1,6 +1,6 @@
 """SSIM as a differentiable perceptual loss — denoising a batch of images
 by gradient descent on 1 - SSIM (an optimization the reference's C++
-library cannot express; this is TPU-native extension surface).
+library cannot express; this is extension surface).
 
     python examples/training.py
 """

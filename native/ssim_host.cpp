@@ -2,9 +2,9 @@
 //
 // Role parity with the reference's CPU engine (the whole of
 // /root/reference/src/ssim.cpp + its SIMD backends): a fast host-side
-// SSIM for deployments without a TPU. The design is NOT a port of the
-// reference's scatter-style blur; it is the same gather-style separable
-// formulation as our TPU kernel (ops/ssim_pallas.py):
+// SSIM for deployments without an accelerator. The design is NOT a port
+// of the reference's scatter-style blur; it is the same gather-style
+// separable formulation as the GPU kernel (ops/ssim_pallas.py):
 //
 //   - clamp-to-edge borders (reference semantics, src/ssim.cpp:515-583)
 //   - 11-tap separable Gaussian, radius 5, sigma 1.5, taps normalized in
@@ -21,7 +21,7 @@
 //   - The two separable passes are FUSED through a ring buffer of the
 //     11 live horizontally-blurred rows per signal (~350 KiB at 1080p,
 //     cache-resident) instead of materializing four full-image
-//     intermediates — the TPU kernel's VMEM-residency idea, on L2.
+//     intermediates — the GPU kernel's register ring, on L2.
 //
 // Built as libssim_host.so (see Makefile), loaded via ctypes by
 // ssim_tpu/ops/host.py.

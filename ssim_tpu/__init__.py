@@ -1,14 +1,15 @@
-"""ssim_tpu — a TPU-native SSIM (Structural Similarity) framework.
+"""ssim_tpu — an SSIM (Structural Similarity) framework in JAX.
 
 A from-scratch JAX/XLA/Pallas rebuild of the capabilities of rmgr::ssim
-(reference: C++98 + per-ISA SIMD, /root/reference), redesigned for TPU:
+(reference: C++98 + per-ISA SIMD), redesigned for accelerators:
 
 - the reference's per-ISA SIMD kernels (ssim_sse/avx/fma/neon.cpp) collapse
-  into one fused Pallas kernel plus a pure-XLA path; XLA owns codegen the way
-  CPUID dispatch owned it there (reference src/ssim.cpp:808-896),
+  into one fused GPU kernel (Pallas through Triton) plus a pure-XLA path
+  for every platform; XLA owns codegen the way CPUID dispatch owned it
+  there (reference src/ssim.cpp:808-896),
 - the reference's tile grid + injected thread pool (src/ssim.cpp:902-926,
-  include/rmgr/ssim.h:451-466) becomes a Pallas grid on one chip and a
-  `jax.sharding` mesh across chips,
+  include/rmgr/ssim.h:451-466) becomes a kernel grid on one device and a
+  `jax.sharding` mesh across devices,
 - the double-precision global accumulation (src/ssim.cpp:594) becomes
   f32 pairwise tile sums finalized in f64 on the host.
 

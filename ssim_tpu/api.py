@@ -7,12 +7,12 @@ Mirrors the reference's public surface (include/rmgr/ssim.h:428-732):
   takes images (arrays or ImageView/Params), returns the global SSIM as a
   Python float (f64-finalized), optionally with the per-pixel map.
 - `ssim` / `ssim_and_map` — jittable on-device versions for use inside
-  larger JAX programs (new TPU-native surface; the global score is f32 on
-  device, finalized by a compensated df32 reduction that matches
+  larger JAX programs (new surface; the global score is f32 on device,
+  finalized by a compensated df32 reduction that matches
   `compute_ssim`'s host f64 finalize to f32 representability — see
   _device_finalize).
 - `ssim_loss` — differentiable 1 - mean(SSIM) perceptual loss (new
-  TPU-native surface; the reference has no autodiff story).
+  surface; the reference has no autodiff story).
 """
 
 import functools
@@ -60,10 +60,8 @@ def compute_ssim(
     with a Params map_buffer (its layout is sized to the full image).
 
     accuracy (extension, default "standard" = reference-tier accuracy):
-    "relaxed" opts wide images into the fused kernel's fast bf16-split
-    tier (~16-18 vs ~13-14 Gpix/s on v5e; global error typically
-    <=2e-7, bounded ~3.8e-6 — outside the reference f32 build's
-    1.49e-6 tier). See engine.compute.
+    "relaxed" is accepted for compatibility and computes at standard
+    accuracy. See engine.compute.
 
     radius/sigma/k1/k2 (extension, defaults = the reference contract):
     custom Gaussian window and stabilization constants, skimage-style
@@ -140,77 +138,18 @@ def compute_ssim_legacy(a, b=None, **kwargs) -> float:
     return result[0] if isinstance(result, tuple) else result
 
 
-def _pallas_forward_with_xla_vjp(pallas_fn, xla_fn):
-    """Differentiable wrapper for float inputs: fused-kernel forward,
-    gradients via the XLA formulation's VJP (fallback for the dtypes the
-    fused backward kernel doesn't take — f64/u16 cast paths). The first
-    grad call pays the XLA compile."""
-
-    @jax.custom_vjp
-    def f(xa, xb):
-        return pallas_fn(xa, xb)
-
-    def f_fwd(xa, xb):
-        return f(xa, xb), (xa, xb)
-
-    def f_bwd(res, g):
-        xa, xb = res
-        _, vjp = jax.vjp(xla_fn, xa, xb)
-        return vjp(g)
-
-    f.defvjp(f_fwd, f_bwd)
-    return f
-
-
-def _pallas_with_pallas_vjp(pallas_fn, data_range, interpret, n, with_map,
-                            relaxed=False, radius=5, sigma=1.5, k1=0.01,
-                            k2=0.03):
-    """Fully TPU-native differentiable wrapper: fused-kernel forward AND
-    fused-kernel analytic backward (ops/ssim_grad.py) — no XLA-formulation
-    compile anywhere in the training path. The score is sum(SSIM)/n, so
-    its cotangent becomes the per-image weight w_s = g/n; with_map
-    outputs additionally route the per-pixel map cotangent into the
-    backward kernel's g_map input. relaxed applies the loose bf16-split
-    tier to the backward kernel too (accuracy="relaxed" is end-to-end)."""
-
-    @jax.custom_vjp
-    def f(xa, xb):
-        return pallas_fn(xa, xb)
-
-    def f_fwd(xa, xb):
-        return f(xa, xb), (xa, xb)
-
-    def f_bwd(res, g):
-        from .ops.ssim_grad import ssim_grad_pallas
-
-        xa, xb = res
-        if with_map:
-            g_score, g_map = g
-            g_map = jnp.asarray(g_map, jnp.float32)
-        else:
-            g_score, g_map = g, None
-        return ssim_grad_pallas(
-            xa, xb, jnp.asarray(g_score, jnp.float32) / n, 0.0, g_map,
-            data_range=data_range, interpret=interpret, relaxed=relaxed,
-            radius=radius, sigma=sigma, k1=k1, k2=k2,
-        )
-
-    f.defvjp(f_fwd, f_bwd)
-    return f
-
-
 def _device_finalize(partials, n: int):
     """On-device f64-grade mean of the f32 partial sums: a compensated
     (df32) pairwise tree over the partials axis plus one compensated
     division by n. Matches the eager path's host f64 finalize
     (engine.finalize_mean — the reference's always-double accumulation,
-    src/ssim.cpp:594) to f32 representability: the plain
-    `jnp.sum(partials) / n` it replaces loses up to ~2e-6 at 4K (tile
-    partials have magnitude ~1e5, so each f32 add rounds at ulp(total));
-    the df32 tree keeps the full sum to ~1 ulp. Differentiable: every
+    src/ssim.cpp:594) to f32 representability: a plain
+    `jnp.sum(partials) / n` loses up to ~2e-6 at 4K (partials have
+    magnitude ~1e3-1e5, so each f32 add rounds at ulp(total)); the df32
+    tree keeps the full sum to ~1 ulp. Differentiable: every
     two_sum/two_prod branch has unit Jacobian in the data path, so
     autodiff through it equals autodiff through the plain mean."""
-    from .ops.ssim_pallas import _df_add, _df_const, _df_div
+    from .ops.df32 import df_add, df_const, df_div
 
     hi, lo = partials, jnp.zeros_like(partials)
     k = hi.shape[-1]
@@ -222,25 +161,19 @@ def _device_finalize(partials, n: int):
     x = (hi, lo)
     while m > 1:
         m //= 2
-        x = _df_add(
+        x = df_add(
             (x[0][..., :m], x[1][..., :m]), (x[0][..., m:], x[1][..., m:])
         )
     s = (x[0][..., 0], x[1][..., 0])
-    return _df_div(s, _df_const(float(n)))[0]
+    return df_div(s, df_const(float(n)))[0]
 
 
-def _run_metric(a, b, impl, data_range, with_map, relaxed=False,
-                radius=5, sigma=1.5, k1=0.01, k2=0.03):
-    """Shared body of ssim/ssim_and_map: dtype routing (ops.routing), a
-    differentiable XLA-backed VJP for float inputs on the Pallas impl.
-
-    relaxed routes the forward through the fused kernel's fast bf16-split
-    tier (ssim_parts_auto(relaxed=True)) AND the analytic backward kernel
-    through its matching loose MXU tier (ssim_grad_pallas(relaxed=True),
-    measured +8-9% on v5e) — accuracy="relaxed" is end-to-end on wide
-    images; both are strict no-ops below MXU_MIN_W."""
-    from .dispatch import backend_platform
-    from .ops.routing import pallas_routable, ssim_parts_auto
+def _run_metric(a, b, impl, data_range, with_map, radius=5, sigma=1.5,
+                k1=0.01, k2=0.03):
+    """Shared body of ssim/ssim_and_map/ssim_loss: validation, routing
+    (ops.routing) and the gradient rule (with_xla_vjp for float inputs
+    on the fused kernel)."""
+    from .ops.routing import pallas_routable, with_xla_vjp
     from .ops.ssim_xla import ssim_parts_xla
 
     # Shapes and dtypes are static at trace time, so the same validation
@@ -249,63 +182,30 @@ def _run_metric(a, b, impl, data_range, with_map, relaxed=False,
     # instead of surfacing as a cryptic XLA broadcast error.
     engine.validate_pair(a, b)
     engine.validate_window(radius, sigma, k1, k2, data_range)
-    radius = int(radius)
-
+    window = dict(data_range=data_range, radius=int(radius), sigma=sigma,
+                  k1=k1, k2=k2)
     n = a.shape[-1] * a.shape[-2]
 
-    def finish(parts):
-        partials, ssim_map = parts
-        score = _device_finalize(partials, n)
-        return (score, ssim_map) if with_map else score
+    def metric(parts_fn):
+        def forward(xa, xb):
+            partials, ssim_map = parts_fn(xa, xb, with_map=with_map, **window)
+            score = _device_finalize(partials, n)
+            return (score, ssim_map) if with_map else score
 
-    def xla_fn(xa, xb):
-        return finish(ssim_parts_xla(
-            xa, xb, with_map=with_map, data_range=data_range,
-            radius=radius, sigma=sigma, k1=k1, k2=k2,
-        ))
+        return forward
 
-    from .ops.ssim_pallas import MAX_FUSED_RADIUS
-
-    resolved = select_impl(impl)
-    if (
-        resolved != Implementation.PALLAS
-        or not pallas_routable(a, b)
-        or radius > MAX_FUSED_RADIUS  # beyond the fused halo geometry
+    xla_forward = metric(ssim_parts_xla)
+    if not (
+        select_impl(impl) == Implementation.PALLAS
+        and pallas_routable(a, b, window["radius"])
     ):
-        # The plain XLA formulation — differentiable by ordinary autodiff.
-        return xla_fn(a, b)
+        return xla_forward(a, b)
+    from .ops.ssim_pallas import ssim_parts_pallas
 
-    interpret = backend_platform() != "tpu"
-
-    def pallas_fn(xa, xb):
-        return finish(
-            ssim_parts_auto(
-                xa, xb, with_map=with_map, data_range=data_range,
-                interpret=interpret, relaxed=relaxed,
-                radius=radius, sigma=sigma, k1=k1, k2=k2,
-            )
-        )
-
-    if a.dtype == jnp.uint8:
-        return pallas_fn(a, b)  # u8 is not differentiable anyway
-
-    from .ops.ssim_grad import grad_pallas_supported
-
-    if a.dtype == jnp.float32 and grad_pallas_supported(
-        a.shape[-2], a.shape[-1], radius
-    ):
-        # f32 calls get the fully TPU-native path: fused forward + fused
-        # analytic backward (the map cotangent rides as the kernel's
-        # per-pixel g_map input; widths beyond one kernel call are
-        # column-chunked inside ssim_grad_pallas; the backward's halo
-        # geometry, like the forward's, is radius-generic up to
-        # MAX_FUSED_RADIUS). f64/u16 inputs keep the XLA-formulation VJP.
-        f = _pallas_with_pallas_vjp(pallas_fn, data_range, interpret, n,
-                                    with_map, relaxed=relaxed, radius=radius,
-                                    sigma=sigma, k1=k1, k2=k2)
-    else:
-        f = _pallas_forward_with_xla_vjp(pallas_fn, xla_fn)
-    return f(a, b)
+    kernel_forward = metric(ssim_parts_pallas)
+    if not jnp.issubdtype(a.dtype, jnp.floating):
+        return kernel_forward(a, b)  # integer inputs have no gradient
+    return with_xla_vjp(kernel_forward, xla_forward)(a, b)
 
 
 @functools.partial(
@@ -324,25 +224,19 @@ def ssim(
     Returns scalar for 2-D inputs, (B,) for batched. The score is
     finalized on device by a compensated df32 reduction
     (_device_finalize) matching compute_ssim's host f64 finalize to f32
-    representability. Differentiable for float inputs on every impl:
-    f32 score-only calls use the fused analytic backward kernel
-    (ops/ssim_grad.py, ~5.7 Gpix/s on v5e); other cases carry an
-    XLA-formulation custom VJP.
+    representability. Differentiable for float inputs on every impl
+    (see _run_metric for the gradient rule).
 
-    accuracy="relaxed" opts wide images into the fused kernel's fast
-    bf16-split tier, forward and backward (see compute_ssim and
-    _run_metric).
+    accuracy: "standard" or "relaxed"; "relaxed" is accepted for
+    compatibility and computes at standard accuracy.
 
     radius/sigma/k1/k2 (extension): custom window and stabilization
-    constants; sigma/k1/k2 keep the fused kernels (including the fused
-    backward), and so does any radius <= MAX_FUSED_RADIUS (16) —
-    forward AND analytic backward build their halo geometry from the
-    taps at trace time (radius > 16 rides XLA end-to-end). See
-    engine.compute.
+    constants. The fused kernel serves radius <= MAX_FUSED_RADIUS (16,
+    ops/routing.py); larger radii ride the XLA path. See engine.compute.
     """
+    _relaxed(accuracy)
     return _run_metric(a, b, impl, data_range, with_map=False,
-                       relaxed=_relaxed(accuracy), radius=radius,
-                       sigma=sigma, k1=k1, k2=k2)
+                       radius=radius, sigma=sigma, k1=k1, k2=k2)
 
 
 def _relaxed(accuracy: str) -> bool:
@@ -360,13 +254,12 @@ def ssim_and_map(
     accuracy: str = "standard", radius: int = 5, sigma: float = 1.5,
     k1: float = 0.01, k2: float = 0.03,
 ) -> Tuple[jnp.ndarray, jnp.ndarray]:
-    """Jittable (global_ssim, per-pixel map). Differentiable like ssim():
-    for f32 inputs both the score and the per-pixel map cotangents route
-    through the fused analytic backward kernel (its g_map input).
+    """Jittable (global_ssim, per-pixel map). Differentiable like ssim(),
+    through the score and the per-pixel map alike. accuracy and
     radius/sigma/k1/k2 as in ssim()."""
+    _relaxed(accuracy)
     return _run_metric(a, b, impl, data_range, with_map=True,
-                       relaxed=_relaxed(accuracy), radius=radius,
-                       sigma=sigma, k1=k1, k2=k2)
+                       radius=radius, sigma=sigma, k1=k1, k2=k2)
 
 
 @functools.partial(
@@ -385,14 +278,11 @@ def ssim_loss(
     Defaults to data_range=1.0 (float images in [0, 1]), the common
     training convention; pass 255.0 for u8-range inputs.
 
-    impl: "auto" selects the fused Pallas kernel on TPU (float inputs)
-    with the fused analytic backward kernel as its VJP — both directions
-    are TPU-native kernels that compile in seconds and run at ~10 / ~4
-    Gpix/s on v5e; any width (wide images column-chunk the backward).
-    f64/u16 inputs fall back to the XLA formulation's VJP. "xla" forces
-    the XLA path throughout.
+    impl: "auto" takes the fused kernel on the GPU and the XLA
+    formulation elsewhere; "xla" forces the XLA path throughout. The
+    gradient rule is _run_metric's.
     """
+    _relaxed(accuracy)
     score = _run_metric(a, b, impl, data_range, with_map=False,
-                        relaxed=_relaxed(accuracy), radius=radius,
-                        sigma=sigma, k1=k1, k2=k2)
+                        radius=radius, sigma=sigma, k1=k1, k2=k2)
     return 1.0 - jnp.mean(score)

@@ -31,9 +31,8 @@ def print_help(file=sys.stdout):
         "  --impl=NAME  Force implementation (auto/xla/pallas/reference/host)\n"
         "  --downsample[=auto|K]  Box-mean prefilter (Wang round(min/256)\n"
         "      factor, or explicit K); the map is then pooled-size\n"
-        "  --relaxed  Fast loose-accuracy tier on wide images (bf16-split\n"
-        "      MXU blurs, ~16-18 vs ~13-14 Gpix/s; error <= ~4e-6);\n"
-        "      applies to --ms too (its wide pyramid scales)\n"
+        "  --relaxed  Accepted for compatibility; computes at standard\n"
+        "      accuracy\n"
         "  --dir  Treat the two paths as DIRECTORIES: batch-evaluate every\n"
         "      same-named image (streaming decode-ahead loader, one\n"
         "      'name: score' line each; -y/-# pick the channel policy)\n"
@@ -156,8 +155,8 @@ def main(argv=None) -> int:
     from .utils import load_image, save_map
 
     # Each CLI invocation is a fresh process; the persistent compilation
-    # cache turns the ~10-60 s first-shape TPU compile into a one-time
-    # cost (SSIM_TPU_COMPILE_CACHE=0 disables).
+    # cache makes the first-shape compile a one-time cost
+    # (SSIM_TPU_COMPILE_CACHE=0 disables).
     enable_compile_cache()
 
     try:

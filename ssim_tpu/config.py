@@ -11,15 +11,14 @@ dataclass + environment variables:
 |------------------------------|----------------------------------------|
 | RMGR_SSIM_USE_DOUBLE         | precision="f64" arg / SSIM_TPU_PRECISION |
 | Implementation enum override | impl= arg / SSIM_TPU_IMPL              |
-| tile/cache-line knobs        | max_tile_h / max_tile_w (Pallas tiles) |
+| tile/cache-line knobs        | none (the kernel's tiles are constants) |
 | RMGR_SSIM_NO_OPENMP          | n/a (host backend threads via OMP_NUM_THREADS) |
 
 New surface: `enable_compile_cache()` turns on JAX's persistent
-compilation cache (SSIM_TPU_COMPILE_CACHE overrides the directory, or
-set it to "0" to disable) — the eager CLI pays a fresh XLA/Mosaic
-compile per process otherwise (~10-60 s on TPU; warm-cache runs load in
-seconds). The reference has no analogue: its compile cost is paid once
-at library build time, ours at trace time.
+compilation cache, so a fresh process (the eager CLI, a test run, a
+benchmark) loads what an earlier one compiled instead of compiling it
+again. The reference has no analogue: its compile cost is paid once at
+library build time, ours at trace time.
 """
 
 import dataclasses
@@ -35,21 +34,12 @@ class Config:
     impl: str = "auto"
     #: Default pixel precision ("f32" or "f64").
     precision: str = "f32"
-    #: Pallas tile overrides (None = tuned defaults in ops/ssim_pallas.py).
-    max_tile_h: Optional[int] = None
-    max_tile_w: Optional[int] = None
 
     @classmethod
     def from_env(cls) -> "Config":
-        def _int(name):
-            v = os.environ.get(name)
-            return int(v) if v else None
-
         return cls(
             impl=os.environ.get("SSIM_TPU_IMPL", "auto"),
             precision=os.environ.get("SSIM_TPU_PRECISION", "f32"),
-            max_tile_h=_int("SSIM_TPU_TILE_H"),
-            max_tile_w=_int("SSIM_TPU_TILE_W"),
         )
 
 
@@ -71,29 +61,23 @@ def set_config(cfg: Config) -> None:
 def enable_compile_cache() -> Optional[str]:
     """Enable JAX's persistent compilation cache (idempotent, best-effort).
 
-    Returns the cache directory, or None when disabled via
-    SSIM_TPU_COMPILE_CACHE=0 or when the directory isn't usable (an
-    unwritable install never breaks callers — they just recompile).
-    Used by the CLI so repeat invocations skip the per-process
-    XLA/Mosaic compile.
+    The directory is JAX_COMPILATION_CACHE_DIR when that is set (and no
+    other is set in code); otherwise the fixed `<source checkout>/.cache/
+    xla_cache` when running from a source tree (pyproject.toml beside the
+    package). An installed package outside a checkout gets no default
+    directory. SSIM_TPU_COMPILE_CACHE=0 disables the cache.
 
-    Default location: `<source checkout>/.cache/xla_cache` when running
-    from a source tree (pyproject.toml present), else the per-user
-    `~/.cache/ssim_tpu/xla_cache` (never inside site-packages).
+    Returns the directory, or None when disabled or not usable (an
+    unwritable directory never breaks callers — they just recompile).
     """
-    choice = os.environ.get("SSIM_TPU_COMPILE_CACHE", "")
-    if choice == "0":
+    if os.environ.get("SSIM_TPU_COMPILE_CACHE", "") == "0":
         return None
-    if choice:
-        cache_dir = choice
-    else:
+    cache_dir = os.environ.get("JAX_COMPILATION_CACHE_DIR", "")
+    if not cache_dir:
         pkg_root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-        if os.path.isfile(os.path.join(pkg_root, "pyproject.toml")):
-            cache_dir = os.path.join(pkg_root, ".cache", "xla_cache")
-        else:
-            cache_dir = os.path.join(
-                os.path.expanduser("~"), ".cache", "ssim_tpu", "xla_cache"
-            )
+        if not os.path.isfile(os.path.join(pkg_root, "pyproject.toml")):
+            return None
+        cache_dir = os.path.join(pkg_root, ".cache", "xla_cache")
     try:
         import jax
 

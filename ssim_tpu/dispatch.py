@@ -5,15 +5,15 @@ Parity with the reference's kernel SPI + runtime ISA dispatch
 reference probes CPUID/HWCAP and fills three function-pointer slots per
 ISA; callers (tests) can force an ISA and get a support bitmask back.
 
-On TPU the compiler owns codegen, so "implementations" are whole compute
-paths, not ISAs:
+On an accelerator the compiler owns codegen, so "implementations" are
+whole compute paths, not ISAs:
 
 - ``reference`` — host NumPy f64 oracle (tests/ssim_naive.h equivalent),
-- ``xla``       — pure-XLA fused path (ops/ssim_xla.py),
-- ``pallas``    — fused Pallas TPU kernel (ops/ssim_pallas.py); runs in
-                  interpreter mode on non-TPU backends (slow, test-only),
+- ``xla``       — pure-XLA fused path (ops/ssim_xla.py), every platform,
+- ``pallas``    — the fused forward kernel (ops/ssim_pallas.py, Pallas
+                  through Triton); compiled for the GPU only,
 - ``host``      — native C++ CPU backend (ops/host.py), when built,
-- ``auto``      — pallas on TPU else xla (the reference's IMPL_AUTO,
+- ``auto``      — pallas on the GPU else xla (the reference's IMPL_AUTO,
                   src/ssim.cpp:935-945).
 
 Like the reference, selection is probe-once-and-cache, and requesting an
@@ -54,8 +54,6 @@ class Implementation(enum.Enum):
 def _probe() -> Dict[Implementation, bool]:
     """Probe available compute paths once (reference: lazy select_impl on
     first call, src/ssim.cpp:935-945)."""
-    platform = jax.devices()[0].platform
-    on_tpu = platform == "tpu"
     try:
         from .ops import host as _host
 
@@ -65,7 +63,9 @@ def _probe() -> Dict[Implementation, bool]:
     return {
         Implementation.REFERENCE: True,
         Implementation.XLA: True,
-        Implementation.PALLAS: True,  # compiled on TPU, interpreted elsewhere
+        # The kernel compiles only for the GPU; production code never
+        # runs it in interpret mode.
+        Implementation.PALLAS: backend_platform() == "gpu",
         Implementation.HOST: host_ok,
         Implementation.AUTO: True,
     }
@@ -89,7 +89,7 @@ def select_impl(impl="auto") -> Implementation:
     if impl == Implementation.AUTO:
         return (
             Implementation.PALLAS
-            if backend_platform() == "tpu"
+            if probe[Implementation.PALLAS]
             else Implementation.XLA
         )
     if not probe.get(impl, False):

@@ -1,18 +1,18 @@
 """Core engine: validation, dispatch, and high-precision finalization.
 
-The TPU-native analogue of the reference's core engine
+The device analogue of the reference's core engine
 (compute_ssim, src/ssim.cpp:933-1106): validate inputs, select an
 implementation, run the per-tile pipeline, and reduce partial sums into the
 global score. Divergences are deliberate and documented:
 
 - The reference's tiling loop / thread-pool job dispatch
-  (src/ssim.cpp:902-926,1084-1086) lives inside the compute paths (Pallas
+  (src/ssim.cpp:902-926,1084-1086) lives inside the compute paths (kernel
   grid / XLA fusion); the engine only orchestrates.
 - The reference accumulates in double no matter the pixel precision
-  (src/ssim.cpp:594,1102). TPUs have no fast f64, so compute paths return
-  f32 per-row partial sums (tree-reduced on device) and the engine
-  finalizes the mean in f64 on the host. Accuracy is validated against the
-  oracle in the test suite, not assumed.
+  (src/ssim.cpp:594,1102). The f32 compute paths return f32 partial sums
+  (per row or per tile) and the engine finalizes the mean in f64 on the
+  host. Accuracy is validated against the oracle in the test suite, not
+  assumed.
 - The reference swallows dispatch errors when no global score is requested
   (src/ssim.cpp:1094-1097) and can overflow uint32 width*height
   (src/ssim.cpp:1102); we do neither.
@@ -22,7 +22,7 @@ from typing import Optional, Tuple
 
 import numpy as np
 
-from .dispatch import Implementation, backend_platform, select_impl
+from .dispatch import Implementation, select_impl
 from .errors import InvalidArgumentError
 
 
@@ -40,8 +40,8 @@ def validate_pair(a: np.ndarray, b: np.ndarray) -> None:
 
     for x in (a, b):
         # jnp.issubdtype (not np's) so the ml_dtypes low-precision floats
-        # (bfloat16 — THE native TPU dtype — float8s, etc.) are accepted;
-        # they route through the f32 cast like float16 does.
+        # (bfloat16, float8s, etc.) are accepted; they route through the
+        # f32 cast like float16 does.
         if not (
             jnp.issubdtype(x.dtype, jnp.integer)
             or jnp.issubdtype(x.dtype, jnp.floating)
@@ -56,10 +56,9 @@ def validate_window(radius, sigma, k1, k2, data_range=None) -> None:
 
     With data_range given, also enforces the degeneracy floor once for
     EVERY compute path: c1*c2 = (k1*k2*data_range^2)^2 must stay a
-    normal f32 (TPUs flush subnormals; below it the SSIM formula itself
-    collapses and the fused kernel's garbage-rows-equal-1.0 identity
-    breaks) — the same floor the fused kernels assert themselves, raised
-    here so the XLA route fails loudly too instead of returning NaN."""
+    normal f32 (accelerators may flush subnormals, and below it the SSIM
+    formula itself collapses), so every route fails loudly instead of
+    returning NaN."""
     if isinstance(radius, bool) or not isinstance(radius, (int, np.integer)):
         raise InvalidArgumentError(f"radius must be an int >= 1, got {radius!r}")
     if radius < 1:
@@ -92,31 +91,11 @@ def window_is_default(radius, sigma, k1, k2) -> bool:
     return _wid(radius, sigma, k1, k2)
 
 
-def _max_fused_radius() -> int:
-    """Lazy MAX_FUSED_RADIUS (importing ops.ssim_pallas pulls in pallas)."""
-    from .ops.ssim_pallas import MAX_FUSED_RADIUS
-
-    return MAX_FUSED_RADIUS
-
-
-def _exact_f32_cast(dt) -> bool:
-    """Dtypes that embed exactly in float32, so the df32 precise tier
-    loses nothing casting to its f32 working type: u8 (native), u16,
-    f16/bf16 (widening), f32 itself. f64 inputs would round BEFORE the
-    compensated arithmetic could see the low bits — those keep the host
-    f64 oracle."""
-    dt = np.dtype(dt)
-    return (
-        dt in (np.dtype(np.uint8), np.dtype(np.uint16),
-               np.dtype(np.float16), np.dtype(np.float32))
-        or dt.name == "bfloat16"
-    )
-
-
 def accuracy_is_relaxed(accuracy) -> bool:
     """Validate an accuracy tier name and return whether it is the
     relaxed one. The single copy of the whitelist (api._relaxed and
-    engine.compute both call this)."""
+    engine.compute both call this). "relaxed" is accepted for
+    compatibility and computes at standard accuracy on every path."""
     if accuracy is None:
         return False
     if accuracy not in ("standard", "relaxed"):
@@ -205,45 +184,31 @@ def compute(
 
     a, b: (H, W) or (B, H, W) uint8-like arrays.
     precision: "f32" (reference default Float) or "f64" (the reference's
-    RMGR_SSIM_USE_DOUBLE build, src/ssim_internal.h:26-37). TPUs have no
-    hardware f64, so the f64 mode is TPU-native compensated double-float:
-    the fused kernel evaluates the SSIM formula and all reductions in
-    df32 (ssim_parts_pallas(precise=True)), measured 2+ orders of
-    magnitude inside the reference double build's error tier for u8
-    (whose squares are f32-exact); u16/f16/bf16/f32 inputs ride the same
-    tier with one extra product rounding (~2^-24 relative) — still well
-    inside the double build's 5e-7 bound. f64 inputs (the f32 cast would
-    round before compensation), mixed dtypes, and non-Pallas impls fall
-    back to the host NumPy f64 oracle.
-    accuracy: "standard" (default) or "relaxed" — the fused kernel's
-    opt-in fast tier (bf16-split MXU blurs on wide images, ~16-18 vs
-    ~13-14 Gpix/s on v5e; error typically <=2e-7 but bounded at
-    ~3.8e-6, outside the reference f32 build's 1.49e-6 tier — see
-    ssim_parts_pallas(relaxed=True)). A Pallas-kernel hint: other impls
-    and narrow images compute at standard accuracy. Incompatible with
-    precision="f64".
+    RMGR_SSIM_USE_DOUBLE build, src/ssim_internal.h:26-37). On the device
+    impls the f64 mode runs the XLA formulation in float64 on the device
+    (ssim_parts_xla(dtype=float64) under a scoped jax.enable_x64), for
+    every input dtype, f64 inputs included, and any radius. impl="host"
+    and impl="reference" serve it from the host NumPy f64 oracle.
+    accuracy: "standard" (default) or "relaxed". "relaxed" is accepted
+    for compatibility and computes at standard accuracy on every path;
+    it is incompatible with precision="f64".
     downsample: None (reference parity — never downsample), "auto" (the
     Wang round(min/256) factor), or an int k >= 1: k x k box-mean +
     decimate prefilter (extension). The score and map then describe the
     pooled image (map is (H//k, W//k)); pooled pixels are float, so the
-    computation rides the float path at full kernel speed. With
-    precision="f64", pooling happens on device in f32 BEFORE the
-    compensated arithmetic: for box areas that are powers of two
-    (k=1,2,4,...) the division is exact and the df32 tier holds; for
-    other k (e.g. k=3, divide by 9) the pooled pixels round once at f32
-    (~2^-24 relative) before compensation — still far inside the
-    reference double build's 5e-7 tier, but not bitwise vs a host
-    f64-pooled oracle.
+    computation rides the float path. Device impls pool on the device in
+    f32 before either precision tier: for box areas that are powers of
+    two (k=1,2,4,...) the division is exact; for other k (e.g. k=3,
+    divide by 9) the pooled pixels round once at f32 (~2^-24 relative),
+    far inside the reference double build's 5e-7 tier but not bitwise
+    against a host f64-pooled oracle.
     radius/sigma/k1/k2 (extension; defaults = the reference contract,
     src/ssim.cpp:227-228 and :956-960): the Gaussian window's radius and
     spread and the stabilization constants, skimage/torchmetrics-style.
-    sigma/k1/k2 ride every device path (trace-time taps/constants), and
-    so does any radius <= MAX_FUSED_RADIUS (16) — the fused kernels
-    build their halo geometry from the taps at trace time, unlike the
-    reference, whose fast paths hardcode radius 5 (src/ssim.cpp:364-449).
-    Larger radii route to the XLA path or, with precision="f64", the f64
-    oracle. Unsupported with impl="host" (the C backend pins the
-    contract window).
+    They ride every device path (trace-time taps/constants); the fused
+    kernel serves radius <= MAX_FUSED_RADIUS (16, ops/routing.py) and
+    larger radii take the XLA path. Unsupported with impl="host" (the C
+    backend pins the contract window).
     Returns (global_ssim float64 scalar or (B,), map f32 or None).
     """
     from .config import get_config
@@ -262,8 +227,7 @@ def compute(
     downsample = resolve_downsample(downsample, a.shape[-2], a.shape[-1])
     if precision not in ("f32", "f64"):
         raise InvalidArgumentError(f"precision must be f32 or f64, got {precision!r}")
-    relaxed = accuracy_is_relaxed(accuracy)
-    if relaxed and precision == "f64":
+    if accuracy_is_relaxed(accuracy) and precision == "f64":
         raise InvalidArgumentError(
             'accuracy="relaxed" contradicts precision="f64" — pick one tier'
         )
@@ -275,20 +239,8 @@ def compute(
             "impl='auto'/'pallas'/'xla'"
         )
     precise = precision == "f64"
-    if precise and not (
-        impl == Implementation.PALLAS
-        and radius <= _max_fused_radius()
-        and a.dtype == b.dtype
-        and _exact_f32_cast(a.dtype)
-    ):
-        # The TPU-native double mode lives in the fused kernel (compensated
-        # df32, ssim_parts_pallas(precise=True)): u8 natively, and any
-        # dtype that embeds exactly in f32 (u16/f16/bf16/f32) through the
-        # kernel's sanitized float path — including downsample-pooled
-        # inputs, which are device f32. What the kernel cannot serve
-        # exactly (f64 inputs — the cast would round before compensation
-        # — mixed dtypes, radius > 16, other impls) gets the NumPy f64
-        # oracle.
+    if precise and impl == Implementation.HOST:
+        # The C backend computes in f32; its double tier is the oracle.
         impl = Implementation.REFERENCE
     if downsample > 1:
         if impl == Implementation.HOST:
@@ -305,9 +257,7 @@ def compute(
             a = box_decimate(a, downsample)
             b = box_decimate(b, downsample)
         else:
-            # Device paths pool on device (reduce_window): a 4K
-            # downsample="auto" call is kernel-dominated, not
-            # host-dominated (measured in docs/RESULTS.md), and the
+            # Device paths pool on the device (reduce_window), so the
             # pooled f32 arrays flow straight into the compute path
             # without a host round-trip.
             from .ops.pool import box_decimate_device
@@ -315,17 +265,15 @@ def compute(
             a = box_decimate_device(a, downsample)
             b = box_decimate_device(b, downsample)
     h, w = a.shape[-2], a.shape[-1]
+    window = dict(data_range=data_range, radius=radius, sigma=sigma,
+                  k1=k1, k2=k2)
 
     if impl == Implementation.REFERENCE:
         from . import reference
 
-        ref_kw = dict(
-            with_map=with_map, data_range=data_range, radius=radius,
-            sigma=sigma, k1=k1, k2=k2,
-        )
         # The oracle vectorizes over the batch (one NumPy blur pass for
         # the whole stack — no Python loop per image).
-        g, m = reference.compute_ssim(a, b, **ref_kw)
+        g, m = reference.compute_ssim(a, b, with_map=with_map, **window)
         if a.ndim == 2:
             return np.float64(g), (None if m is None else m.astype(np.float32))
         return (
@@ -338,44 +286,34 @@ def compute(
 
         return host.compute(a, b, with_map=with_map, data_range=data_range)
 
-    # Dtype routing lives in ops.routing (one policy shared with the
-    # jittable APIs and the sharded layers): u8 natively, float/f64/u16
-    # via the kernel's sanitized float path, anything else XLA.
-    from .ops.routing import pallas_routable, ssim_parts_auto
+    if precise:
+        # The double tier on the device: the XLA formulation in float64,
+        # with x64 switched on for this call only.
+        import jax
+        import jax.numpy as jnp
 
-    if impl == Implementation.PALLAS and pallas_routable(a, b):
-        tile_kwargs = {}
-        if cfg.max_tile_h is not None:
-            tile_kwargs["max_tile_h"] = cfg.max_tile_h
-        if cfg.max_tile_w is not None:
-            tile_kwargs["max_tile_w"] = cfg.max_tile_w
-        partials, ssim_map = ssim_parts_auto(
-            a,
-            b,
-            with_map=with_map,
-            data_range=data_range,
-            interpret=backend_platform() != "tpu",
-            precise=precise,
-            relaxed=relaxed,
-            radius=radius,
-            sigma=sigma,
-            k1=k1,
-            k2=k2,
-            **tile_kwargs,
-        )
-    else:
-        # XLA path; also the fallback for every non-uint8 dtype — the
-        # fused kernel's u8 fast path matches the reference's u8-only
-        # contract (README.md:107-111), while the API additionally
-        # accepts float images (data_range=1.0) and wider integer depths
-        # (e.g. uint16 with data_range=65535; the reference requires a
-        # rebuild for those, README.md:107-111).
         from .ops.ssim_xla import ssim_parts_xla
 
-        partials, ssim_map = ssim_parts_xla(
-            a, b, with_map=with_map, data_range=data_range,
-            radius=radius, sigma=sigma, k1=k1, k2=k2,
-        )
+        with jax.enable_x64(True):
+            partials, ssim_map = ssim_parts_xla(
+                a, b, with_map=with_map, dtype=jnp.float64, **window
+            )
+            partials = np.asarray(partials)
+            if ssim_map is not None:
+                ssim_map = np.asarray(ssim_map).astype(np.float32)
+        return finalize_mean(partials, h * w), ssim_map
+
+    # Dtype routing lives in ops.routing (one policy shared with the
+    # jittable APIs and the sharded layers). The XLA path also serves
+    # every dtype the kernel does not: the API accepts float images
+    # (data_range=1.0) and wider integer depths (e.g. uint16 with
+    # data_range=65535; the reference requires a rebuild for those,
+    # README.md:107-111).
+    if impl == Implementation.PALLAS:
+        from .ops.routing import ssim_parts_auto as parts_fn
+    else:
+        from .ops.ssim_xla import ssim_parts_xla as parts_fn
+    partials, ssim_map = parts_fn(a, b, with_map=with_map, **window)
 
     global_ssim = finalize_mean(np.asarray(partials), h * w)
     return global_ssim, (None if ssim_map is None else np.asarray(ssim_map))

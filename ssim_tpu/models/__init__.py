@@ -2,7 +2,7 @@
 
 The reference library implements exactly one metric — single-scale SSIM
 (README.md:4-6). This package hosts that metric's variants plus
-TPU-native extensions (clearly labeled; no reference analogue):
+extensions (clearly labeled; no reference analogue):
 
 - ssim: the core metric, re-exported from the package root.
 - msssim: multi-scale SSIM (Wang, Simoncelli & Bovik 2003), built on the

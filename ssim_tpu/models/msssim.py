@@ -1,4 +1,4 @@
-"""Multi-scale SSIM (MS-SSIM) — TPU-native extension.
+"""Multi-scale SSIM (MS-SSIM) — extension.
 
 No reference analogue (rmgr::ssim is single-scale only); implemented to
 the standard recipe of Wang, Simoncelli & Bovik, "Multi-scale structural
@@ -49,16 +49,11 @@ def _l_cs_maps(a, b, c1, c2, taps):
 
 def _downsample2(x):
     """2x2 mean pooling, truncating odd trailing rows/cols (the standard
-    MS-SSIM dyadic pyramid step).
-
-    Implemented as an add reduce_window: measured 0.04 ms at 1080p on
-    v5e vs 1.5 ms for the reshape-mean formulation (whose minor-dim-2
-    reshape forces relayouts) and 21 ms for stride-2 slicing — the
-    downsamples, not the kernels, dominated MS-SSIM before this.
-    """
+    MS-SSIM dyadic pyramid step), as an add reduce_window."""
     dims = (1,) * (x.ndim - 2) + (2, 2)
-    s = jax.lax.reduce_window(x, np.float32(0), jax.lax.add, dims, dims, "VALID")
-    return s * np.float32(0.25)
+    zero = np.zeros((), x.dtype)
+    s = jax.lax.reduce_window(x, zero, jax.lax.add, dims, dims, "VALID")
+    return s * np.asarray(0.25, x.dtype)
 
 
 def _check_levels(a, levels):
@@ -70,107 +65,18 @@ def _check_levels(a, levels):
         )
 
 
-def _cs_ssim_sums_diff(data_range, interpret, relaxed=False,
-                       sigma=SIGMA, k1=0.01, k2=0.03):
-    """Per-scale differentiable [sum_cs, sum_ssim]: components-kernel
-    forward, fused analytic-backward kernel (ops/ssim_grad.py) as the
-    VJP — no XLA-formulation compile anywhere in the MS-SSIM training
-    path. Cotangent layout follows the components kernel: g[..., 0] is
-    the sum_cs cotangent (w_cs), g[..., 1] the sum_ssim one (w_s).
-    relaxed applies end-to-end (forward AND the backward kernel's loose
-    MXU tier — same contract as api.ssim; no-op below MXU_MIN_W)."""
-    from ..ops.ssim_pallas import ssim_components_pallas
-
-    @jax.custom_vjp
-    def f(xa, xb):
-        parts = ssim_components_pallas(
-            xa, xb, data_range=data_range, interpret=interpret,
-            relaxed=relaxed, sigma=sigma, k1=k1, k2=k2,
-        )
-        return jnp.sum(parts, axis=-2)  # (..., 2): [sum_cs, sum_ssim]
-
-    def f_fwd(xa, xb):
-        return f(xa, xb), (xa, xb)
-
-    def f_bwd(res, g):
-        from ..ops.ssim_grad import ssim_grad_pallas
-
-        xa, xb = res
-        return ssim_grad_pallas(
-            xa, xb, g[..., 1], g[..., 0],
-            data_range=data_range, interpret=interpret, relaxed=relaxed,
-            sigma=sigma, k1=k1, k2=k2,
-        )
-
-    f.defvjp(f_fwd, f_bwd)
-    return f
-
-
-def _ms_pallas_forward(a, b, data_range, weights, interpret, diff=False,
-                       relaxed=False, sigma=SIGMA, k1=0.01, k2=0.03):
-    """Components-kernel pyramid. With diff=True every scale runs through
-    the custom-VJP sums (fused backward kernel), making the whole pyramid
-    natively differentiable — the _downsample2 reduce_window between
-    scales has a standard XLA gradient."""
-    from ..ops.ssim_pallas import (
-        pooled_components_ok,
-        ssim_components_pallas,
-        ssim_components_pooled_pallas,
-    )
-
+def _ms_xla_forward(a, b, data_range, weights, sigma=SIGMA, k1=0.01, k2=0.03,
+                    dtype=jnp.float32):
+    """The 5-scale pyramid in the XLA formulation (differentiable by
+    ordinary autodiff). dtype=float64 (under jax.enable_x64) gives the
+    double-precision reference of the same pyramid."""
     levels = len(weights)
-    x_a, x_b = a, b
-    result = None
-    for lvl, w in enumerate(weights):
-        n = x_a.shape[-2] * x_a.shape[-1]
-        pooled = None
-        if diff:
-            sums = _cs_ssim_sums_diff(
-                data_range, interpret, relaxed, sigma, k1, k2
-            )(x_a, x_b) / n
-        elif lvl < levels - 1 and pooled_components_ok(x_a.shape, x_a.dtype):
-            # One launch returns the sums AND the pooled next-scale
-            # inputs (the fused pool_out mode) — drops the inter-scale
-            # reduce_window pass, the biggest fixed cost of the pyramid
-            # after the kernels themselves (docs/RESULTS.md "MS-SSIM
-            # structural limit"). u8 scale 0 pools bit-exactly; the f32
-            # scales 1..3 pool via HIGHEST dots (round 5 — the
-            # inference pyramid runs with NO reduce_window at all).
-            parts, pa, pb = ssim_components_pooled_pallas(
-                x_a, x_b, data_range=data_range, interpret=interpret,
-                relaxed=relaxed, sigma=sigma, k1=k1, k2=k2,
-            )
-            sums = jnp.sum(parts, axis=-2) / n
-            pooled = (pa, pb)
-        else:
-            parts = ssim_components_pallas(
-                x_a, x_b, data_range=data_range, interpret=interpret,
-                relaxed=relaxed, sigma=sigma, k1=k1, k2=k2,
-            )
-            sums = jnp.sum(parts, axis=-2) / n  # (..., 2): [mean_cs, mean_ssim]
-        if lvl == levels - 1:
-            # Coarsest scale uses the full SSIM mean (Wang 2003 eq. 7).
-            term = jnp.maximum(sums[..., 1], 1e-6) ** w
-        else:
-            term = jnp.maximum(sums[..., 0], 1e-6) ** w
-            if pooled is not None:
-                x_a, x_b = pooled
-            else:
-                x_a = _downsample2(x_a.astype(jnp.float32))
-                x_b = _downsample2(x_b.astype(jnp.float32))
-        result = term if result is None else result * term
-    return result
+    taps = gaussian_taps(np.dtype(dtype), RADIUS, sigma)
+    c1 = np.asarray((k1 * data_range) ** 2, dtype)
+    c2 = np.asarray((k2 * data_range) ** 2, dtype)
 
-
-def _ms_xla_forward(a, b, data_range, weights, sigma=SIGMA, k1=0.01, k2=0.03):
-    """Pure-XLA pyramid (differentiable; slow to compile on TPU)."""
-    levels = len(weights)
-    taps = gaussian_taps(np.float32, RADIUS, sigma)
-    c1 = jnp.float32((k1 * data_range) ** 2)
-    c2 = jnp.float32((k2 * data_range) ** 2)
-
-    af = a.astype(jnp.float32)
-    bf = b.astype(jnp.float32)
+    af = a.astype(dtype)
+    bf = b.astype(dtype)
     result = None
     for lvl, w in enumerate(weights):
         l_map, cs_map = _l_cs_maps(af, bf, c1, c2, taps)
@@ -186,16 +92,6 @@ def _ms_xla_forward(a, b, data_range, weights, sigma=SIGMA, k1=0.01, k2=0.03):
             bf = _downsample2(bf)
         result = term if result is None else result * term
     return result
-
-
-def _pallas_eligible(a, b):
-    """Every pyramid scale must be a shape/dtype the components kernel
-    accepts; anything else silently keeps the XLA path (same silent-
-    fallback convention as api._run_metric). Width is unrestricted: u8
-    and f32 both have a chunked path (the pad kernel is dtype-generic)."""
-    if a.ndim not in (2, 3) or a.dtype != b.dtype:
-        return False
-    return a.dtype in (jnp.uint8, jnp.float32)
 
 
 @functools.partial(
@@ -218,61 +114,30 @@ def ms_ssim(
 ) -> jnp.ndarray:
     """Jittable MS-SSIM. a, b: (..., H, W); needs min(H, W) >= 11 * 2^(L-1).
 
-    Returns scalar for 2-D inputs, (B,) for batched. Differentiable on
-    every path: for f32 inputs each pyramid scale carries the fused
-    analytic backward kernel (ops/ssim_grad.py) as its VJP, so forward
-    AND gradient are TPU-native kernels; non-f32 dtypes fall back to
-    an XLA-formulation VJP (slow first grad compile, same numerics).
+    Returns scalar for 2-D inputs, (B,) for batched. Differentiable by
+    ordinary autodiff through the XLA formulation, which every platform
+    runs.
 
-    impl: "auto" (the fused components-mode Pallas kernel on TPU — ~1.7x
-    the XLA formulation's per-scale throughput — and XLA elsewhere),
-    "pallas", or "xla".
+    impl: validated like every entry point ("auto", "xla", ...); every
+    resolved impl computes the XLA pyramid.
 
-    accuracy="relaxed" opts the wide pyramid scales (w >= MXU_MIN_W —
-    in the canonical 5-scale pyramid usually scales 0-1) into the fused
-    kernel's loose bf16-split blur tier, forward AND backward (see
-    api.ssim); Pallas impl only (the XLA path computes at standard
-    accuracy).
+    accuracy: "standard" or "relaxed"; "relaxed" is accepted for
+    compatibility and computes at standard accuracy.
 
     sigma/k1/k2 (extension, torchmetrics-style): custom window spread and
-    stabilization constants, threaded through every scale on both paths
-    (radius stays 5 — the canonical MS-SSIM window size).
+    stabilization constants, threaded through every scale (radius stays
+    5 — the canonical MS-SSIM window size).
     """
     from ..api import _relaxed
-    from ..dispatch import Implementation, backend_platform, select_impl
+    from ..dispatch import select_impl
     from ..engine import validate_pair, validate_window
 
-    levels = len(weights)
-    relaxed = _relaxed(accuracy)
+    _relaxed(accuracy)
     validate_pair(a, b)  # static at trace time (same EINVAL surface as engine.compute)
     validate_window(RADIUS, sigma, k1, k2, data_range)
-    _check_levels(a, levels)
-
-    resolved = select_impl(impl)
-    use_pallas = resolved == Implementation.PALLAS and _pallas_eligible(a, b)
-    if not use_pallas:
-        return _ms_xla_forward(a, b, data_range, weights, sigma, k1, k2)
-
-    interpret = backend_platform() != "tpu"
-    if a.dtype != jnp.float32:
-        # u8 inputs are not differentiable (integer tangents); skip the
-        # VJP wrapper so the forward stays a pure kernel call.
-        return _ms_pallas_forward(a, b, data_range, weights, interpret,
-                                  relaxed=relaxed, sigma=sigma, k1=k1, k2=k2)
-
-    from ..ops.ssim_grad import grad_pallas_supported
-
-    # Scale 0 is the widest scale, so if it fits the fused backward every
-    # coarser scale does too: the whole pyramid (forward AND gradient) is
-    # TPU-native kernels. grad_pallas_supported holds for EVERY valid
-    # pyramid — _check_levels guarantees min side >= 11 > RADIUS, and the
-    # column-chunked backward accepts any width — so this is an invariant
-    # check, not a branch (a never-executed XLA-VJP fallback used to live
-    # here; a review flagged it as dead code).
-    assert grad_pallas_supported(a.shape[-2], a.shape[-1])
-    return _ms_pallas_forward(a, b, data_range, weights, interpret,
-                              diff=True, relaxed=relaxed, sigma=sigma,
-                              k1=k1, k2=k2)
+    _check_levels(a, len(weights))
+    select_impl(impl)
+    return _ms_xla_forward(a, b, data_range, weights, sigma, k1, k2)
 
 
 def compute_ms_ssim(a, b, *, data_range: float = 255.0,

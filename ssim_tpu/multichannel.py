@@ -6,7 +6,7 @@ Parity with the reference CLI's channel handling (src/ssim-cli.cpp:130-213):
 - BT.601 luminance of RGB (-y, :158-186; bit-exact fixed-point conversion
   in utils.imageio.luminance_bt601).
 
-TPU-first note: per-channel computation is just a batch — channels are
+Device note: per-channel computation is just a batch — channels are
 stacked on the leading axis and one batched device call computes all of
 them (the reference loops channels serially through the whole engine).
 """

@@ -1,14 +1,11 @@
-"""Numeric kernels: the TPU-native equivalents of the reference's SIMD
+"""Numeric kernels: the device equivalents of the reference's SIMD
 backends (src/ssim_{sse,avx,fma,avx512,neon}.cpp) and per-tile pipeline
-(src/ssim.cpp:747-791)."""
+(src/ssim.cpp:747-791). Imports stay lazy below this package: the Pallas
+kernel module is loaded only by the paths that run it."""
 
 from .ssim_xla import ssim_parts_xla, blur_separable
-from .ssim_pallas import ssim_parts_pallas
-from .ssim_grad import ssim_grad_pallas
 
 __all__ = [
     "ssim_parts_xla",
     "blur_separable",
-    "ssim_parts_pallas",
-    "ssim_grad_pallas",
 ]

@@ -1,7 +1,7 @@
 """Native C++ host (CPU) backend bridge.
 
-The reference is a pure CPU library; our TPU framework keeps a native CPU
-path for parity and for TPU-less deployments. The backend lives in
+The reference is a pure CPU library; this framework keeps a native CPU
+path for parity and for deployments without an accelerator. The backend lives in
 native/ssim_host.cpp (OpenMP + autovectorized separable blur — a fresh
 design, not a port of the reference's scatter blur) and is loaded via
 ctypes. Until the shared library is built (make -C native), this module

@@ -1,12 +1,10 @@
 """Device-side box-mean decimation (the `downsample` prefilter).
 
 The k x k box mean + stride-k decimation (Wang ssim_index.m automatic
-prefilter; engine.resolve_downsample) ran on the host in NumPy f64 until
-round 3, which made `downsample="auto"` on a 4K pair host-dominated
-before the fused kernel ever saw a pixel. This is the device version,
-built on the same add-`reduce_window` pattern that made the MS-SSIM
-pyramid 12.6x faster (models/msssim._downsample2 — reshape-mean pooling
-forces relayouts on TPU; reduce_window does not).
+prefilter; engine.resolve_downsample) on the device, so a
+`downsample="auto"` call on a large pair is not dominated by host
+pooling. It is the add-`reduce_window` pattern of the MS-SSIM pyramid
+(models/msssim._downsample2).
 
 Numerics vs the host f64 version (engine.box_decimate): for uint8
 inputs the f32 window sum is EXACT whenever k^2 * 255 < 2^24, i.e.
@@ -16,10 +14,8 @@ k >= 257 loses the exact-sum guarantee and degrades gracefully to
 ~1-ulp-per-addition accumulation error (still orders below the metric
 tolerances); the final division by the exact constant k^2 is
 then within 1 ulp of the true mean — XLA rewrites divide-by-constant
-into multiply-by-reciprocal, and TPU hardware division is
-reciprocal-based anyway (measured: both return the same 1-ulp-off value
-for e.g. 1555/9, on CPU-jit and TPU alike), so exactly-rounded division
-is not available inside jit on any backend. Power-of-two factors (the
+into multiply-by-reciprocal (e.g. 1555/9 comes back 1 ulp off under
+jit), so exactly-rounded division is not available inside jit. Power-of-two factors (the
 common auto factors 2, 4, 8) are exact. For float inputs the window sum
 adds ~k^2 ulp more. All of it is orders below the metric's f32
 tolerance tiers; callers needing the f64 semantics (the

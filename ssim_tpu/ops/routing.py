@@ -1,35 +1,43 @@
-"""Shared dtype routing for the fused kernel vs the XLA path.
+"""Shared routing between the fused forward kernel and the XLA path.
 
-One policy, used by engine.compute, the jittable APIs (api._run_metric),
-and the sharded layers (parallel.batch) — kept in one place so the gates
-cannot drift (a review found three hand-maintained copies diverging):
+One policy, used by engine.compute, the jittable APIs (api._run_metric)
+and the sharded layers (parallel.batch), kept in one place so the gates
+cannot drift:
 
-- uint8 pairs: the fused kernel's native path (the reference's only
-  supported depth, README.md:107-111).
-- float32/float64 pairs and uint16 pairs: cast to f32 (exact for u16 and
-  any value below 2^24) and ride the fused kernel's sanitized float path
-  — any width (the pad kernel is dtype-generic). The fused kernel is
-  ~2x the XLA path's throughput (13.7 vs 6.6 Gpix/s at 1080p b1 on
-  v5e, and far more at larger batches, re-measured
-  round 3; on the round-1/2 stack the XLA path additionally cost
-  ~160 s/shape to compile on TPU, which no longer reproduces —
-  docs/RESULTS.md "XLA path re-measured").
-- everything else (mixed dtypes, exotic ints): the XLA path.
+- uint8 pairs, and same-dtype float or uint16 pairs, ride the fused
+  kernel (ops/ssim_pallas.py), which loads them natively and computes
+  in f32 (exact for u8/u16 and for any value below 2^24);
+- radii beyond MAX_FUSED_RADIUS, mixed dtypes and other integer types
+  take the XLA path.
 
 Works on NumPy arrays (engine) and traced jnp arrays (jit) alike; all
-branching is on static dtypes.
+branching is on static dtypes and shapes.
 """
 
 from typing import Optional, Tuple
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 
+#: Largest window radius the fused kernel serves; the kernel keeps a
+#: ring of 2r+1 blurred rows in registers, so the bound caps register
+#: pressure. Larger radii route to the XLA path.
+MAX_FUSED_RADIUS = 16
+
 
 def _is_float_routable(dt) -> bool:
-    # jnp.issubdtype so bfloat16 (kind "V" to NumPy) routes through the
-    # f32 cast like float16/float64 do; the cast widens, so it is exact.
+    # jnp.issubdtype so bfloat16 (kind "V" to NumPy) counts as a float.
     return jnp.issubdtype(dt, jnp.floating) or np.dtype(dt) == np.uint16
+
+
+def pallas_routable(a, b, radius: int = 5) -> bool:
+    """Whether the fused kernel takes this pair at this window radius."""
+    if radius > MAX_FUSED_RADIUS:
+        return False
+    return (a.dtype == jnp.uint8 and b.dtype == jnp.uint8) or (
+        a.dtype == b.dtype and _is_float_routable(a.dtype)
+    )
 
 
 def ssim_parts_auto(
@@ -38,110 +46,43 @@ def ssim_parts_auto(
     *,
     with_map: bool = False,
     data_range: float = 255.0,
-    interpret: bool = False,
-    precise: bool = False,
-    relaxed: bool = False,
     radius: int = 5,
     sigma: float = 1.5,
     k1: float = 0.01,
     k2: float = 0.03,
-    **tile_kwargs,
 ) -> Tuple[jnp.ndarray, Optional[jnp.ndarray]]:
-    """Fused kernel when the dtype allows it, XLA otherwise.
+    """Fused kernel when the pair and radius allow it, XLA otherwise.
+    Callers choose this only for Implementation.PALLAS, which dispatch
+    offers on the GPU alone."""
+    window = dict(data_range=data_range, radius=radius, sigma=sigma,
+                  k1=k1, k2=k2)
+    if pallas_routable(a, b, radius):
+        from .ssim_pallas import ssim_parts_pallas
 
-    relaxed opts wide images into the kernel's fast loose-accuracy tier
-    (ssim_parts_pallas(relaxed=True), the bf16-split "mxu3x" blurs); it
-    is an accuracy hint for the fused kernel only — the XLA fallback
-    computes at standard accuracy regardless. The lane-packed path
-    honors it too (its packed rows are wide even when the images are
-    small).
-
-    radius/sigma/k1/k2 generalize the window (extension): every radius
-    up to MAX_FUSED_RADIUS (16) rides the fused kernels — the halo
-    geometry is built from the taps at trace time — and larger radii
-    route to the XLA path; sigma/k1/k2 ride the fused kernel (trace-time
-    taps and constants) on every route, including the lane-packed fast
-    path (its radius-wide gutters isolate the window for any tap
-    values)."""
-    from .ssim_pallas import (
-        MAX_FUSED_RADIUS,
-        pack_preferred,
-        ssim_parts_pallas,
-        ssim_parts_pallas_bpacked,
-    )
+        return ssim_parts_pallas(a, b, with_map=with_map, **window)
     from .ssim_xla import ssim_parts_xla
 
-    def pack_routable(itemsize: int) -> bool:
-        # One gate for u8 and float batches: the lane-packed path has no
-        # map mode and an exact-f32 per-image count; the width policy
-        # lives in pack_preferred. Since round 5 the precise tier packs
-        # too (df32 colsum mode of the gutterless path).
-        return (
-            not with_map
-            and not tile_kwargs
-            and a.ndim == 3
-            and data_range >= 1e-6
-            and pack_preferred(a.shape[-1], a.shape[0], itemsize=itemsize,
-                               radius=radius)
-            and a.shape[-2] * a.shape[-1] < 1 << 24
-        )
-
-    if radius > MAX_FUSED_RADIUS:
-        if precise:
-            # The engine routes precise + oversized radius to the f64
-            # oracle before reaching here; a direct caller would
-            # otherwise get a silently non-compensated XLA result.
-            raise ValueError(
-                f"precise=True with radius > {MAX_FUSED_RADIUS} is not "
-                "available on device paths — use the f64 oracle "
-                "(engine.compute(precision='f64', radius=...))"
-            )
-        return ssim_parts_xla(
-            a, b, with_map=with_map, data_range=data_range,
-            radius=radius, sigma=sigma, k1=k1, k2=k2,
-        )
-    if a.dtype == jnp.uint8 and b.dtype == jnp.uint8:
-        if pack_routable(itemsize=1):
-            # Batched small images: the gutterless lane-packed path
-            # (round 5; measured on v5e: 32^2 x8192 1.3 -> 7.1, 64^2
-            # x4096 3.1 -> 6.9, 128^2 x1024 8.2 -> 9.1 Gpix/s; see
-            # PACK_MAX_W's comment for the width policy).
-            return ssim_parts_pallas_bpacked(
-                a, b, data_range=data_range, interpret=interpret,
-                relaxed=relaxed, precise=precise,
-                radius=radius, sigma=sigma, k1=k1, k2=k2,
-            ), None
-        return ssim_parts_pallas(
-            a, b, with_map=with_map, data_range=data_range,
-            interpret=interpret, precise=precise, relaxed=relaxed,
-            radius=radius, sigma=sigma, k1=k1, k2=k2, **tile_kwargs,
-        )
-    if a.dtype == b.dtype and _is_float_routable(a.dtype):
-        af = a.astype(jnp.float32)
-        bf = b.astype(jnp.float32)
-        if pack_routable(itemsize=4):
-            # Small float batches pack too; per-column NaN poisoning
-            # keeps invalid-input propagation per-image.
-            return ssim_parts_pallas_bpacked(
-                af, bf, data_range=data_range, interpret=interpret,
-                allow_float=True, relaxed=relaxed, precise=precise,
-                radius=radius, sigma=sigma, k1=k1, k2=k2,
-            ), None
-        return ssim_parts_pallas(
-            af, bf,
-            with_map=with_map, data_range=data_range,
-            interpret=interpret, precise=precise, allow_float=True,
-            relaxed=relaxed, radius=radius, sigma=sigma, k1=k1, k2=k2,
-            **tile_kwargs,
-        )
-    return ssim_parts_xla(
-        a, b, with_map=with_map, data_range=data_range,
-        radius=radius, sigma=sigma, k1=k1, k2=k2,
-    )
+    return ssim_parts_xla(a, b, with_map=with_map, **window)
 
 
-def pallas_routable(a, b) -> bool:
-    """Whether ssim_parts_auto would pick the fused kernel."""
-    return (a.dtype == jnp.uint8 and b.dtype == jnp.uint8) or (
-        a.dtype == b.dtype and _is_float_routable(a.dtype)
-    )
+def with_xla_vjp(kernel_forward, xla_forward):
+    """kernel_forward as the primal, differentiated as xla_forward.
+
+    A pallas_call has no autodiff rule, so under differentiation the
+    forward runs as the XLA formulation and its autodiff VJP is the
+    backward: a gradient costs exactly what plain autodiff costs, and a
+    primal-only call keeps the kernel. (An analytic VJP in plain jnp was
+    slower than autodiff on an H100; see PERF.md.)"""
+
+    @jax.custom_vjp
+    def f(xa, xb):
+        return kernel_forward(xa, xb)
+
+    def f_fwd(xa, xb):
+        return jax.vjp(xla_forward, xa, xb)
+
+    def f_bwd(vjp, g):
+        return vjp(g)
+
+    f.defvjp(f_fwd, f_bwd)
+    return f

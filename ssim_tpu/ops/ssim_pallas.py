@@ -1,58 +1,27 @@
-"""Fused Pallas TPU kernel for SSIM.
+"""Fused SSIM forward kernel for the GPU (Pallas, Triton route).
 
-One kernel replaces the reference's entire per-tile pipeline
-(process_tile, src/ssim.cpp:747-791: retrieve -> multiply x3 -> blur x5 ->
-sum_tile) and all of its per-ISA SIMD backends. TPU-first design:
+One program per (image, row tile, column tile). It streams the tile's
+input rows plus an r-row halo above and below, and keeps nothing in
+device memory between the input and the outputs:
 
-- Tiling: a grid of short, full-width output row tiles (32 rows up to
-  4096 lanes), the TPU analogue of the reference's 256x64 tiles
-  (src/ssim.cpp:227-239) but sized to VMEM and lane geometry and fed by
-  Mosaic's automatic double-buffered pipeline instead of hand-managed
-  stack buffers and margin arithmetic.
-- Zero-copy halos (fast path, _nopad_overlap_call): the RAW u8 images
-  are consumed directly — each kernel instance reads the previous,
-  current, and next row blocks of the same array through three clamped
-  BlockSpec index maps and concatenates its 16-row halo band in VMEM.
-  Nothing is ever padded or copied in HBM. Lane handling has three
-  modes (_lane_mode_for): wide images (w >= 512) split the horizontal
-  blurs across BOTH compute units ("mxu" mode — mu-passes on the VPU,
-  squared-signal passes as chunked banded matmuls on the MXU); narrow
-  128-multiple widths keep bands at exactly w lanes and clamp inside
-  the VPU pass (roll + edge-select); other narrow widths concatenate
-  edge-replica lanes.
-- Borders: the clamp-to-edge rule (reference tile-fetch replication,
-  src/ssim.cpp:515-583) is folded into per-tile vertical band matrices
-  (clamped_band_matrices): out-of-image rows carry zero weight with
-  their taps re-folded onto the edge row, which simultaneously
-  neutralizes ragged-edge garbage; left/right lane replication is two
-  VMEM broadcasts.
-- Work is split across both compute units: the vertical blur runs on the
-  MXU as a banded matmul (~64-96 f32 MACs/px, far inside MXU headroom)
-  while the horizontal blur runs on the VPU with the symmetric-pair
-  factorization (6 muls + 10 adds per 11-tap pass, smallest taps first)
-  — the gather-style equivalent of the reference's L/R-symmetry scatter
-  blur (src/ssim.cpp:366-462). Only four signals are blurred (a, b,
-  (a+b)^2, (a-b)^2) instead of the reference's five; see the kernel body
-  for the linearity identity.
-- Images wider than one tile use _chunked_overlap_call: the same design
-  generalized to lane chunks consumed zero-copy (clamped index maps +
-  an internal halo concat per chunk — the round-4 rewrite retired the
-  DMA pad kernel; ops/pad.py is retained for reference only).
-- Measured on v5e (round 3, mxu lane mode): ~12.6-13.9 Gpix/s at
-  1080p-8K with or without map (54-60x the reference's best
-  full-machine CPU number; the RPC-attached chip adds ~±3% run-to-run
-  variance even with on-device-loop timing); max global error vs the
-  f64 oracle ~5e-9, max per-pixel ~2.0e-6 — inside the reference's
-  double-build tolerance tier.
-- Per-pixel SSIM (sum_tile equivalent, src/ssim.cpp:590-704) is evaluated
-  in f32; per-tile partial sums land in SMEM and are finalized in f64 on
-  the host, honoring the reference's double-precision accumulation
-  contract (src/ssim.cpp:594). Tiles sum (ssim - 1) + exact valid count:
-  ragged tiles' garbage rows (deterministically 1.0 — zero band-matrix
-  weights) contribute exactly 0 without any masking, and the residual
-  sum's small magnitude buys finer f32 ulp everywhere. This mirrors the
-  reference's per-thread partial sums + final reduce
-  (src/ssim.cpp:916,1098-1099).
+- loads: each input row is read at the 2r+1 clamped column offsets of
+  the window (the clamp-to-edge border rule, src/ssim.cpp:497-583, as
+  index clamping, so no padded copy of the input is ever written). u8,
+  u16 and float inputs are loaded in their own dtype and converted to
+  f32 in registers;
+- signals: a, b, (a+b)^2 and (a-b)^2 — one blur fewer than the five
+  signals of ops/ssim_xla.py — blurred horizontally as the row is read;
+- vertical blur: a ring of the last 2r+1 horizontally blurred rows lives
+  in registers, so each output row costs one new input row;
+- outputs: the SSIM formula per pixel, the map row when asked for, and
+  one f32 partial sum per program. The cross-program sum is left to the
+  caller (engine.finalize_mean on the host, api._device_finalize on the
+  device), because programs run in no fixed order.
+
+All arithmetic is plain f32 FMA on the CUDA cores: there is no matrix
+product, so TF32 never enters. Tiles are fixed powers of two chosen on an
+H100 (64 x 128, four warps; see PERF.md); radius up to
+routing.MAX_FUSED_RADIUS.
 """
 
 import functools
@@ -62,1640 +31,90 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
 from ..windows import RADIUS, SIGMA, gaussian_taps
 
-#: Largest window radius the fused kernels serve. The halo geometry is
-#: built from `taps` at trace time (band margins round the radius up to
-#: the 8-row sublane tile; the MXU tap matrix is (128 + 2r, 128)), so any
-#: radius <= 16 rides the same kernels at full speed — the reference pins
-#: radius 5 in its fast paths (hardcoded s0..s5 loads,
-#: src/ssim.cpp:364-449); this bound is one sublane tile of vertical halo
-#: from each neighbor row block. Larger radii route to the XLA path.
-MAX_FUSED_RADIUS = 16
-
-#: Output tile shape. Measured on v5e: short-and-wide tiles win
-#: (pipelining is better and lane-tile fragmentation lower). Full-width
-#: 32-row tiles ride the zero-copy fast path up to TILE_W lanes; wider
-#: images fall back to the banded 2-D lane-chunk grid. Round-4 sweep
-#: (tools/sweep.py, u8 no-map, Gpix/s): the fast path holds full speed
-#: far past the old 4096 gate — 7680: 14.6 (chunked managed 12.4),
-#: 12288: 14.6, 14336: 14.9, 16384: 15.0, then declines (24576: 12.8,
-#: 32768: 12.5) as the scoped-VMEM window crowds out double-buffering —
-#: still above the chunked path (12.3 at 24576), but the decline plus
-#: the VMEM hard ceiling (~34K lanes at 100 MiB) argues for handing the
-#: tail to the chunked grid at the measured sweet-spot edge.
-TILE_H = 32
-TILE_W = 16384
-
-#: Fast-path lane strategy: "auto" (default) picks per width via
-#: _lane_mode_for — "mxu" for w >= MXU_MIN_W, else "roll" (unwidened
-#: bands + roll-with-edge-select hpass) iff w % 128 == 0, else "concat"
-#: (edge-replica halo lanes). Round-2 roll/concat data (Gpix/s):
-#: 128-multiples love roll — their w + 2r concat band crosses a vreg
-#: boundary (128² 7.24/5.14, 256² 9.56/6.59) — while non-multiples
-#: hate it (224² 6.15/8.53). Env override
-#: SSIM_TPU_LANE_MODE=mxu|mxu3x|roll|concat exists for benchmarking
-#: (mxu3x is the fast loose-accuracy tier, see _lane_mode_for).
-import os as _os
-
-_LANE_MODE = _os.environ.get("SSIM_TPU_LANE_MODE", "auto")
-#: Benchmarking/debug knob: disable the integer-mu bf16-split blur
-#: tricks (read at import time, like _LANE_MODE).
-_INTMU = _os.environ.get("SSIM_TPU_INTMU", "1") == "1"
-#: Benchmarking knob: in mxu/mxu3x lane mode, run the two mu horizontal
-#: blurs on the MXU as well (default: VPU, overlapping the two units).
-_MU_MXU = _os.environ.get("SSIM_TPU_MU_MXU", "0") == "1"
-
-
-#: Minimum width for the MXU lane mode (measured crossover on v5e; see
-#: _lane_mode_for). Below it the per-chunk matmul fixed costs beat the
-#: VPU savings.
-MXU_MIN_W = 512
-
-
-def _lane_mode_for(w: int, precise: bool = False, relaxed: bool = False) -> str:
-    """Fast-path horizontal-blur strategy: "mxu" | "roll" | "concat".
-
-    "mxu" (round-3 default for wide images) splits the four blurs across
-    both compute units: the mu_a/mu_b horizontal passes stay on the VPU
-    (symmetric-pair slicing over a concat-style band) while the heavy
-    s^2/d^2 passes run on the MXU as per-128-lane-chunk banded matmuls
-    (aligned slices, (138, 128) tap matrix) at HIGHEST precision.
-    Measured on v5e: global means agree with the all-VPU kernel to the
-    last f32 bit on every checked image; per-pixel map values differ by
-    up to ~1.1e-6 (HIGHEST is 6-pass bf16 arithmetic, f32-equivalent
-    but not bit-equal), with max map error vs the f64 oracle ~2.0e-6 vs
-    the all-VPU kernel's ~1.9e-6 — both far inside even the reference
-    DOUBLE build's 9.2e-6 tier. Throughput: 1080p b4 10.6 -> ~12.8-13.3
-    Gpix/s no-map, 4K ~13.9, 8K chunked ~12.6 (was 10.9). Small widths
-    keep the round-2 roll/concat modes (per-chunk matmul fixed costs
-    dominate there: 128^2 measured 0.66x even for the faster 3x
-    variant).
-
-    A faster-but-looser variant exists behind SSIM_TPU_LANE_MODE=mxu3x:
-    manual 3-pass bf16 heavy passes (bf16_3x: x1h1 + x1h2 + x2h1 —
-    Mosaic lowers only DEFAULT/HIGHEST, so the split is explicit),
-    measured 16.0 Gpix/s at 1080p b4 / 18.1 at 2560-wide. Its error is
-    bounded by the 2-term bf16 split of the squared signals (~2^-17
-    relative; a 4th pass does NOT help — measured): typically <=2e-7
-    on the global mean but up to ~3.8e-6 on impulse-noise content,
-    which is OUTSIDE the reference f32 build's 1.49e-6 global tier, so
-    it is not the default. precise mode always keeps roll/concat — its
-    compensated-df32 guarantees assume bit-exact f32 blurs.
-    """
-    if _LANE_MODE != "auto":
-        return _LANE_MODE
-    if not precise and w >= MXU_MIN_W:
-        return "mxu3x" if relaxed else "mxu"
-    return "roll" if w % 128 == 0 else "concat"
-
-
-def hpass_tap_matrix(taps) -> np.ndarray:
-    """The banded (128 + 2r, 128) tap matrix of the MXU lane mode:
-    H[j+d, j] = taps[d], so band lanes [128c, 128c+128+2r) @ H yields
-    output lanes [128c, 128c+128). Passed to the kernel as an operand
-    (pallas kernels may not capture array constants)."""
-    r = len(taps) // 2
-    hmat = np.zeros((128 + 2 * r, 128), np.float32)
-    for j in range(128):
-        for d in range(len(taps)):
-            hmat[j + d, j] = taps[d]
-    return hmat
-
-
-def _make_hpass_mxu(w: int, r: int = RADIUS, exact: bool = True,
-                    co: Optional[int] = None):
-    """Chunked MXU horizontal blur over a widened band
-    (..., ceil(w/128)*128 + 2r lanes, image column 0 at lane r):
-    output lanes [128c, 128c+128) come from band lanes
-    [128c, 128c+128+2r) — every slice start is vreg-aligned —
-    right-multiplied by the banded tap matrix (hpass_tap_matrix,
-    passed in as `hm`).
-
-    exact=True (the "mxu" mode) uses HIGHEST-precision dots:
-    f32-equivalent accuracy, NOT bit-equal to the VPU hpass (6-pass
-    bf16 arithmetic; per-pixel diffs up to ~1.1e-6 — see
-    _lane_mode_for's measurement note). exact=False (the opt-in "mxu3x"
-    mode) uses a manual 3-pass bf16 split (x1h1 + x1h2 + x2h1, DEFAULT
-    dots — bf16 products are exact in f32, so the error is the 2-term
-    x/h splits' dropped residual ~2^-17 relative; a 4th x2h2 pass does
-    not help, measured).
-
-    `co` is the lane of image/chunk column 0 in the input band. The
-    aligned-slice scheme assumes co == r (the default); other offsets
-    are handled by one left-rotate of the band per signal — the rotated
-    junk lands beyond the last slice's reach."""
-    nchunk = -(-w // 128)
-    if co is None:
-        co = r
-    sw = 128 + 2 * r
-
-    def hpass(x, hm):
-        if co != r:
-            x = jnp.roll(x, -(co - r), axis=-1)
-        def dot(u, v, precision):
-            return jax.lax.dot_general(
-                u, v, (((1,), (0,)), ((), ())),
-                preferred_element_type=jnp.float32,
-                precision=precision,
-            )
-
-        if not exact:
-            h1 = hm.astype(jnp.bfloat16)
-            h2 = (hm - h1.astype(jnp.float32)).astype(jnp.bfloat16)
-            x1 = x.astype(jnp.bfloat16)
-            x2 = (x - x1.astype(jnp.float32)).astype(jnp.bfloat16)
-        outs = []
-        for c in range(nchunk):
-            if exact:
-                sl = jax.lax.slice_in_dim(x, 128 * c, 128 * c + sw, axis=1)
-                outs.append(dot(sl, hm, jax.lax.Precision.HIGHEST))
-            else:
-                s1 = jax.lax.slice_in_dim(x1, 128 * c, 128 * c + sw, axis=1)
-                s2 = jax.lax.slice_in_dim(x2, 128 * c, 128 * c + sw, axis=1)
-                d = functools.partial(dot, precision=jax.lax.Precision.DEFAULT)
-                outs.append(d(s1, h1) + (d(s1, h2) + d(s2, h1)))
-        out = jnp.concatenate(outs, axis=1)
-        return out[:, :w] if nchunk * 128 != w else out
-
-    return hpass
-
-def packed_chunk_matrices(w: int, p: int, taps) -> np.ndarray:
-    """Per-chunk clamp-folded tap matrices for a GUTTERLESS packed row of
-    p images, each w lanes wide (round-5 packed path). Output lane
-    u = img*w + q takes taps from its OWN image's lanes only, with the
-    reference clamp-to-edge rule (src/ssim.cpp:540-555) folded into the
-    weights — a block-diagonal horizontal blur, materialized as the MXU
-    lane mode's aligned (128+2r, 128) chunk matmuls with one matrix per
-    chunk instead of a shared one. This removes both the per-image
-    replica gutters (13.5%% of packed lanes at w=64) and the edge-pad
-    HBM pass of the round-4 packed layout, and keeps the transpose
-    granule a power of two. Band layout contract: image column 0 of the
-    row at band lane r (same as the shared-matrix mxu mode)."""
-    r = len(taps) // 2
-    total = p * w
-    nchunk = -(-total // 128)
-    sw = 128 + 2 * r
-    m = np.zeros((nchunk, sw, 128), np.float32)
-    for u in range(total):
-        c, j = divmod(u, 128)
-        img, q = divmod(u, w)
-        for d in range(-r, r + 1):
-            v = img * w + min(max(q + d, 0), w - 1)
-            m[c, r + v - 128 * c, j] += taps[d + r]
-    return m
-
-
-def _make_hpass_pchunk_int(total: int, r: int):
-    """Integer-exact fast horizontal blur for the gutterless packed row's
-    MU passes on u8 inputs (round 5): pixel values 0..255 are bf16-EXACT
-    (8 significant bits), so blurring the RAW band horizontally FIRST
-    needs only a bf16 split of the TAP MATRICES, not of the signal. A
-    3-term split h1 + h2 + h3 leaves a dropped residual ~2^-27 relative
-    (each bf16 rounding contributes 2^-9) — firmly f32-class, unlike
-    the relaxed tier's 2-term split of non-integer squared signals
-    (~2^-17) — for three DEFAULT-precision chunk matmuls instead of six
-    HIGHEST passes. The caller then applies the vertical pass (HIGHEST)
-    to the result; blur order commutes mathematically and both orders
-    are f32-class numerically (validated vs the f64 oracle,
-    docs/RESULTS.md). hm12: (3, nchunk, 128+2r, 128) bf16 stack of the
-    split matrices."""
-    nchunk = -(-total // 128)
-    sw = 128 + 2 * r
-
-    def hpass(x, hm12):
-        x1 = x.astype(jnp.bfloat16)  # exact for u8-derived bands
-        outs = []
-        for c in range(nchunk):
-            sl = jax.lax.slice_in_dim(x1, 128 * c, 128 * c + sw, axis=1)
-            acc = None
-            for k in range(3):
-                d = jax.lax.dot_general(
-                    sl, hm12[k, c], (((1,), (0,)), ((), ())),
-                    preferred_element_type=jnp.float32,
-                    precision=jax.lax.Precision.DEFAULT,
-                )
-                acc = d if acc is None else acc + d
-            outs.append(acc)
-        out = jnp.concatenate(outs, axis=1)
-        return out[:, :total] if nchunk * 128 != total else out
-
-    return hpass
-
-
-def _make_hpass_pchunk(total: int, r: int, exact: bool = True):
-    """Horizontal blur for the gutterless packed row: per-128-lane-chunk
-    matmuls against a (nchunk, 128+2r, 128) matrix STACK (one clamp-
-    folded block-diagonal matrix per chunk, packed_chunk_matrices).
-    exact=True uses HIGHEST dots (f32-equivalent, the standard tier);
-    exact=False is the relaxed mxu3x-style 3-pass bf16 split, applied to
-    the HEAVY blurs only (the caller keeps mu blurs exact)."""
-    nchunk = -(-total // 128)
-    sw = 128 + 2 * r
-
-    def hpass(x, hm):
-        def dot(u, v, precision):
-            return jax.lax.dot_general(
-                u, v, (((1,), (0,)), ((), ())),
-                preferred_element_type=jnp.float32,
-                precision=precision,
-            )
-
-        if not exact:
-            h1 = hm.astype(jnp.bfloat16)
-            h2 = (hm - h1.astype(jnp.float32)).astype(jnp.bfloat16)
-            x1 = x.astype(jnp.bfloat16)
-            x2 = (x - x1.astype(jnp.float32)).astype(jnp.bfloat16)
-        outs = []
-        for c in range(nchunk):
-            if exact:
-                sl = jax.lax.slice_in_dim(x, 128 * c, 128 * c + sw, axis=1)
-                outs.append(dot(sl, hm[c], jax.lax.Precision.HIGHEST))
-            else:
-                s1 = jax.lax.slice_in_dim(x1, 128 * c, 128 * c + sw, axis=1)
-                s2 = jax.lax.slice_in_dim(x2, 128 * c, 128 * c + sw, axis=1)
-                d = functools.partial(dot, precision=jax.lax.Precision.DEFAULT)
-                outs.append(d(s1, h1[c]) + (d(s1, h2[c]) + d(s2, h1[c])))
-        out = jnp.concatenate(outs, axis=1)
-        return out[:, :total] if nchunk * 128 != total else out
-
-    return hpass
-
-
-#: Lane overlap of input bands beyond the tile: 2*RADIUS of true halo
-#: rounded to the 128-lane tile. Row overlap is computed per-geometry:
-#: band_rows = round_up(tile_h + 2*RADIUS, 32) keeps u8 bands
-#: sublane-tile aligned for any tile_h multiple of 8.
-COL_OVERLAP = 128
-
-
-def _round_up(x: int, m: int) -> int:
-    return (x + m - 1) // m * m
-
-
-#: VMEM working-set budget of the fast path, in f32 band elements
-#: (tile_h x (w + 2r)); the bands are f32 after the in-kernel convert
-#: regardless of input dtype. Every measured-valid config obeys it
-#: (64x1920 ok / 96x1920 over, 32x3840 ok / 64x3840 over, 192x640 ok)
-#: — same constant as the chunked path's MAX_CHUNK_W * TILE_H.
-_FAST_PATH_BUDGET = 131072
-#: Tighter budget for FLOAT inputs: the six double-buffered input blocks
-#: are f32 (4x u8's), so the same tile_h x w that fits with u8 inputs
-#: OOMs scoped VMEM with floats — measured on v5e: 32 x 3288 compiles,
-#: 32 x 4212 fails with "18.79M and limit 16.00M". Float images wider
-#: than this budget's 32-row width (~3062 lanes) take the chunked path
-#: (whose _pick_chunk_w already scales by itemsize).
-_FLOAT_FAST_PATH_BUDGET = 98304
-#: Preferred tile area. Sweeps on v5e (docs/RESULTS.md): per-tile fixed
-#: costs want big tiles, Mosaic pipelining wants many small ones; ~32k
-#: elements is the measured sweet spot across 64x64...3840-wide shapes.
-_TILE_AREA_TARGET = 32768
-
-
-def _pick_tile_h(
-    h: int, w: int, precise: bool = False, float_input: bool = False,
-    radius: int = RADIUS,
-) -> int:
-    """Adaptive fast-path tile height (multiple of 32 in [32, 256]).
-
-    Measured on v5e (batched small images; the large-image optimum was
-    already tile_h=32): first minimize padded rows ceil(h/t)*t — ragged
-    waste dominates when tiles are few (128x128 @ t=96 runs 45% slower
-    than t=128) — then, among minimizers, pick the tile area closest to
-    _TILE_AREA_TARGET. Wins: 256x256 b256 4.56 -> 6.61 Gpix/s (t=128),
-    128x128 b1024 3.55 -> 5.11 (t=128), 360x640 b64 6.58 -> 8.44 (t=64),
-    64x64 b4096 2.62 -> 3.12 (t=64); 4K unchanged (t=32, the only
-    budget-fitting height). In the MXU lane mode (u8, w >= MXU_MIN_W)
-    the tie-break instead prefers 64 — see the inline note.
-    precise mode halves the budget (df32 temporaries), degrading to the
-    legacy 32 whenever the budget has no candidate. float_input selects
-    the tighter _FLOAT_FAST_PATH_BUDGET (f32 input blocks are 4x u8's).
-    """
-    budget = (_FLOAT_FAST_PATH_BUDGET if float_input else _FAST_PATH_BUDGET) // (
-        2 if precise else 1
-    )
-    cands = [t for t in range(32, 257, 32) if t * (w + 2 * radius) <= budget]
-    if not cands:
-        return 32
-    padded = {t: -(-h // t) * t for t in cands}
-    best = min(padded.values())
-    if not precise and not float_input and w >= MXU_MIN_W:
-        # MXU lane mode (u8, wide): 64 is the measured-best minimizer —
-        # the per-tile banded matmuls amortize better than at 32, while
-        # 128+ regresses (v5e: 1080p b4 12973->13413 no-map /
-        # 12835->13454 map at 32->64; 1024x1536 b8 12543->13426;
-        # 512^2 b64 11357 @64 vs 8085 @128; 256^2 @256 worse than @128).
-        return min(
-            (t for t in cands if padded[t] == best),
-            key=lambda t: (abs(t - 64), -t),
-        )
-    target = _TILE_AREA_TARGET / max(1, w)
-    return min(
-        (t for t in cands if padded[t] == best),
-        key=lambda t: (abs(t - target), -t),
-    )
-
-
-def vertical_band_matrix(
-    tile_h: int, band_rows: int, taps: np.ndarray, shift: int = 0
-) -> np.ndarray:
-    """Banded (tile_h, band_rows) matrix V with V[y, shift+y+d] = taps[d]:
-    left-multiplying an input band computes the vertical blur pass as one
-    MXU matmul (64-96 MACs/px, well inside MXU headroom — measured ~1.3x
-    end-to-end speedup over the VPU tap loop on v5e, and more accurate
-    because the MXU accumulates in one pass). `shift` absorbs layout
-    offsets (e.g. the pad kernel's 8-row alignment vs the radius-5 halo)."""
-    v = np.zeros((tile_h, band_rows), np.float32)
-    for y in range(tile_h):
-        for d in range(len(taps)):
-            v[y, shift + y + d] = taps[d]
-    return v
-
-
-def _make_hpass(t, r, out_w, co=None):
-    """11-tap symmetric horizontal blur -> (..., out_w), smallest taps
-    accumulated first (symmetric-pair factorization of the reference's
-    L/R symmetry, src/ssim.cpp:366-449). `co` is the lane offset of image
-    column 0 in the input (default: the radius-halo layout)."""
-    if co is None:
-        co = r
-
-    def hpass(v):
-        acc = None
-        for d in range(r, 0, -1):  # smallest taps first
-            lo = jax.lax.slice_in_dim(v, co - d, co - d + out_w, axis=-1)
-            hi = jax.lax.slice_in_dim(v, co + d, co + d + out_w, axis=-1)
-            term = t[r - d] * (lo + hi)
-            acc = term if acc is None else acc + term
-        return acc + t[r] * jax.lax.slice_in_dim(v, co, co + out_w, axis=-1)
-
-    return hpass
-
-
-def _make_hpass_roll(t, r, out_w):
-    """11-tap symmetric horizontal blur over an UNWIDENED (..., out_w)
-    array: lane shifts come from jnp.roll, and the d wrapped edge lanes
-    are corrected to the clamp-to-edge value with an iota select.
-
-    Mathematically identical to _make_hpass on a halo-widened array
-    (same values, same accumulation order — clamping commutes with the
-    per-column vertical pass), but the band never grows to w + 2r lanes:
-    for widths just under a 128-lane vreg boundary (e.g. 256 -> 266
-    rounds to 384) the concat version wastes a third of every VPU/MXU
-    operation on padding lanes.
-    """
-
-    def hpass(v):
-        lane = jax.lax.broadcasted_iota(jnp.int32, v.shape, v.ndim - 1)
-        left = v[..., :1]
-        right = v[..., out_w - 1 : out_w]
-        acc = None
-        for d in range(r, 0, -1):  # smallest taps first (parity order)
-            lo = jnp.where(lane < d, left, jnp.roll(v, d, axis=-1))
-            hi = jnp.where(lane >= out_w - d, right, jnp.roll(v, -d, axis=-1))
-            term = t[r - d] * (lo + hi)
-            acc = term if acc is None else acc + term
-        return acc + t[r] * v
-
-    return hpass
-
-
-def _ssim_from_blurs(mu_a, mu_b, s_ss, s_dd, c1, c2):
-    """SSIM formula (reference sum_tile, src/ssim.cpp:683-692) from the
-    four blurred signals, using
-        4*sigma_ab   = (s_ss - s_dd) - 4*mu_a*mu_b
-        2*(sa2+sb2)  = (s_ss + s_dd) - 2*(mu_a^2 + mu_b^2)."""
-    mu_a2 = mu_a * mu_a
-    mu_b2 = mu_b * mu_b
-    mu_ab = mu_a * mu_b
-    sigma_ab_x4 = (s_ss - s_dd) - 4.0 * mu_ab
-    sigma_sum_x2 = (s_ss + s_dd) - 2.0 * (mu_a2 + mu_b2)
-    num = (2.0 * mu_ab + c1) * (0.5 * sigma_ab_x4 + c2)
-    den = (mu_a2 + mu_b2 + c1) * (0.5 * sigma_sum_x2 + c2)
-    return num / den
-
-
-def _l_cs_from_blurs(mu_a, mu_b, s_ss, s_dd, c1, c2):
-    """Luminance and contrast-structure factors of the SSIM formula
-    (MS-SSIM components; Wang et al. 2003 eq. 6-7)."""
-    mu_a2 = mu_a * mu_a
-    mu_b2 = mu_b * mu_b
-    mu_ab = mu_a * mu_b
-    sigma_ab_x4 = (s_ss - s_dd) - 4.0 * mu_ab
-    sigma_sum_x2 = (s_ss + s_dd) - 2.0 * (mu_a2 + mu_b2)
-    lum = (2.0 * mu_ab + c1) / (mu_a2 + mu_b2 + c1)
-    cs = (0.5 * sigma_ab_x4 + c2) / (0.5 * sigma_sum_x2 + c2)
-    return lum, cs
-
-
-# ---------------------------------------------------------------------------
-# Double-float (df32) arithmetic for the high-precision mode.
-#
-# The reference's RMGR_SSIM_USE_DOUBLE build recompiles every kernel with
-# Float=double (src/ssim_internal.h:26-37). TPUs have no hardware f64, so
-# the TPU-native equivalent keeps each value as an unevaluated pair of
-# f32s (hi, lo) — classic Dekker/Knuth error-free transformations, which
-# XLA/Mosaic preserve (no unsafe float reassociation). Error attribution
-# (docs/RESULTS.md) shows the f32 SSIM *formula* dominates the error
-# (~1.8e-6 per pixel, catastrophic cancellation in the sigma terms) while
-# the MXU-HIGHEST blurs contribute only ~1.1e-7 — so the precision mode
-# compensates the formula and the reductions, leaving the blurs f32.
-# ---------------------------------------------------------------------------
-
-
-def _two_sum(a, b):
-    """Error-free a+b -> (s, e) with s+e == a+b exactly (Knuth)."""
-    s = a + b
-    bb = s - a
-    return s, (a - (s - bb)) + (b - bb)
-
-
-def _quick_two_sum(a, b):
-    """Error-free a+b assuming |a| >= |b| (Dekker)."""
-    s = a + b
-    return s, b - (s - a)
-
-
-def _veltkamp_split(a):
-    """a == hi + lo with hi carrying the top 12 mantissa bits."""
-    c = a * 4097.0  # 2**12 + 1
-    hi = c - (c - a)
-    return hi, a - hi
-
-
-def _two_prod(a, b):
-    """Error-free a*b -> (p, e) with p+e == a*b exactly (Dekker, no FMA)."""
-    p = a * b
-    ah, al = _veltkamp_split(a)
-    bh, bl = _veltkamp_split(b)
-    e = ((ah * bh - p) + ah * bl + al * bh) + al * bl
-    return p, e
-
-
-def _df_add(x, y):
-    s, e = _two_sum(x[0], y[0])
-    return _quick_two_sum(s, e + x[1] + y[1])
-
-
-def _df_neg(x):
-    return (-x[0], -x[1])
-
-
-def _df_scale_pow2(x, k: float):
-    """Exact scaling by a power of two."""
-    return (x[0] * k, x[1] * k)
-
-
-def _df_mul(x, y):
-    p, e = _two_prod(x[0], y[0])
-    return _quick_two_sum(p, e + x[0] * y[1] + x[1] * y[0])
-
-
-def _df_div(x, y):
-    """df/df with one Newton correction (~2 ulp of df32)."""
-    q1 = x[0] / y[0]
-    p, e = _two_prod(q1, y[0])
-    s, f = _two_sum(x[0], -p)
-    r = (s + ((f - e) + x[1])) - q1 * y[1]
-    return _quick_two_sum(q1, r / y[0])
-
-
-def _df_sum_2d(hi, lo):
-    """Compensated pairwise reduction of a 2-D df32 array to a scalar df32
-    pair. Plain f32 tree summation of ~1e5 near-unit values loses ~3e-7
-    of the mean (measured); this halving df32 tree keeps the compensation
-    at ~11 extra element-ops per pixel."""
-    th, w = hi.shape
-
-    def pow2_pad(x, axis):
-        n = x.shape[axis]
-        m = 1 << (n - 1).bit_length()
-        if m == n:
-            return x
-        pad = [(0, 0), (0, 0)]
-        pad[axis] = (0, m - n)
-        return jnp.pad(x, pad)
-
-    x = (pow2_pad(hi, 1), pow2_pad(lo, 1))
-    m = x[0].shape[1]
-    while m > 1:
-        m //= 2
-        x = _df_add(
-            (x[0][:, :m], x[1][:, :m]), (x[0][:, m:], x[1][:, m:])
-        )
-    x = (pow2_pad(x[0], 0), pow2_pad(x[1], 0))
-    t = x[0].shape[0]
-    while t > 1:
-        t //= 2
-        x = _df_add((x[0][:t], x[1][:t]), (x[0][t:], x[1][t:]))
-    return x[0][0, 0], x[1][0, 0]
-
-
-def _df_colsum(hi, lo):
-    """Compensated pairwise reduction over ROWS only -> per-lane df32
-    pair ((w,), (w,)). The row-axis half of _df_sum_2d, used by the
-    precise packed path (colsum mode) so per-image segment sums keep
-    the summation compensation."""
-
-    def pow2_pad(x):
-        n = x.shape[0]
-        m = 1 << (n - 1).bit_length()
-        return x if m == n else jnp.pad(x, ((0, m - n), (0, 0)))
-
-    x = (pow2_pad(hi), pow2_pad(lo))
-    t = x[0].shape[0]
-    while t > 1:
-        t //= 2
-        x = _df_add((x[0][:t], x[1][:t]), (x[0][t:], x[1][t:]))
-    return x[0][0], x[1][0]
-
-
-def _df_const(v: float):
-    """A Python float as a df32 constant pair."""
-    hi = np.float32(v)
-    return (float(hi), float(np.float32(v - float(hi))))
-
-
-def _ssim_from_blurs_df32(mu_a, mu_b, s_ss, s_dd, c1: float, c2: float):
-    """Compensated SSIM formula: same algebra as _ssim_from_blurs but in
-    df32, eliminating the f32 cancellation error in the sigma terms (the
-    dominant error term; measured ~1.8e-6 -> ~1e-7 per pixel). Inputs are
-    the plain-f32 blurred signals; returns (hi, lo) per-pixel SSIM."""
-    c1 = _df_const(c1)
-    c2 = _df_const(c2)
-    mu_ab = _two_prod(mu_a, mu_b)
-    mu_a2 = _two_prod(mu_a, mu_a)
-    mu_b2 = _two_prod(mu_b, mu_b)
-    msum = _df_add(mu_a2, mu_b2)
-    # 4*sigma_ab   = (s_ss - s_dd) - 4*mu_a*mu_b
-    sig_ab4 = _df_add(_two_sum(s_ss, -s_dd), _df_neg(_df_scale_pow2(mu_ab, 4.0)))
-    # 2*(sa2+sb2)  = (s_ss + s_dd) - 2*(mu_a^2 + mu_b^2)
-    sig_sum2 = _df_add(_two_sum(s_ss, s_dd), _df_neg(_df_scale_pow2(msum, 2.0)))
-    num = _df_mul(
-        _df_add(_df_scale_pow2(mu_ab, 2.0), c1),
-        _df_add(_df_scale_pow2(sig_ab4, 0.5), c2),
-    )
-    den = _df_mul(
-        _df_add(msum, c1),
-        _df_add(_df_scale_pow2(sig_sum2, 0.5), c2),
-    )
-    return _df_div(num, den)
-
-
-def _halo_rows(r: int) -> int:
-    """Vertical halo rows taken from each neighbor row block: the radius
-    rounded up to the 8-row sublane tile (8 for r <= 8, 16 for r <= 16)."""
-    return -(-r // 8) * 8
-
-
-def clamped_band_matrices(tile_h: int, band: int, taps: np.ndarray,
-                          h: int, nh: int, hb: int = 8) -> np.ndarray:
-    """Per-row-tile vertical blur matrices with the clamp-to-edge border
-    rule folded in (reference replication, src/ssim.cpp:560-582).
-
-    Band column k of tile i holds image row i*tile_h - hb + k as assembled
-    by the kernel (hb rows from the previous block, the current block, hb
-    rows of the next; hb = _halo_rows(radius)). Entry [i, y, k] is the
-    total tap weight of that row for output row y — out-of-image rows get
-    ZERO weight (their clamped taps fold onto the edge row's column),
-    which also neutralizes the garbage lanes of ragged edge blocks and
-    the wrong rows delivered by the clamped prev/next index maps at
-    i=0 / i=nh-1."""
-    r = len(taps) // 2
-    v = np.zeros((nh, tile_h, band), np.float32)
-    for i in range(nh):
-        base = i * tile_h - hb
-        for y in range(tile_h):
-            if i * tile_h + y >= h:
-                continue  # fully out-of-image output row (masked anyway)
-            for d in range(len(taps)):
-                src = min(max(i * tile_h + y - r + d, 0), h - 1)
-                k = src - base
-                if 0 <= k < band:
-                    v[i, y, k] += taps[d]
-    return v
-
-
-def halo_band_matrices(tile_h: int, band: int, taps: np.ndarray,
-                       h: int, nh: int, hb: int = 8) -> np.ndarray:
-    """Vertical blur matrices for the halo-operand mode (vhalo): the
-    local (H, W) block is a window of a larger global image, with the
-    2*radius neighbor rows supplied as separate kernel operands instead
-    of being clamp-replicated — the spatial-sharding case
-    (parallel/spatial.py), where those rows arrive over ICI.
-
-    Same band layout invariant as clamped_band_matrices (band column k
-    of tile i holds VIRTUAL image row i*tile_h - hb + k), but taps are
-    NOT folded at the local edges: weights for virtual rows [-r, 0) and
-    [h, h+r) land on the band positions where the kernel splices the
-    halo operands (see band_of in _nopad_overlap_call). Out-of-window
-    band positions beyond the halos keep zero weight, which neutralizes
-    the clamped prev/next index maps' wrong rows and ragged-tile garbage
-    exactly as in the clamped variant."""
-    r = len(taps) // 2
-    v = np.zeros((nh, tile_h, band), np.float32)
-    for i in range(nh):
-        for y in range(tile_h):
-            if i * tile_h + y >= h:
-                continue  # garbage output row of the ragged last tile
-            for d in range(len(taps)):
-                src = i * tile_h + y - r + d  # virtual row, in [-r, h+r)
-                k = src - (i * tile_h - hb)
-                v[i, y, k] += taps[d]
-    return v
-
-
-def _nopad_overlap_call(a, b, h, w, taps, c1, c2, with_map, interpret, max_tile_h,
-                        precise=False, components=False, clip_bound=131072.0,
-                        colsum=False, relaxed=False, pool_out=False,
-                        rowsum=False, vhalo=None, vmask=None, pchunk=None):
-    """Zero-copy fast path: the RAW (B, H, W) images are consumed directly
-    by the kernel — no padding pass at all. Each instance reads three
-    row blocks per image (prev/cur/next via clamped index maps; ragged
-    edge blocks allowed), builds the vertical halo by concatenation, and
-    applies a per-tile band matrix with the clamp-to-edge rule folded in
-    (clamped_band_matrices). Horizontal edge replication happens in VMEM
-    (two lane concats per image). This removes the pad kernel's HBM round
-    trip and its dispatch (~5-7% end-to-end on v5e).
-    """
-    r = len(taps) // 2
-    hb = _halo_rows(r)
-    batch = a.shape[0]
-    float_mode = a.dtype == jnp.float32
-    assert pchunk is None or vhalo is None, "pchunk and vhalo are exclusive"
-    tile_h = max(32, min(max_tile_h, 256) // 32 * 32)
-    nh = -(-h // tile_h)
-    band = tile_h + 2 * hb
-    # vhalo mode (spatial sharding): the 2r neighbor rows arrive as four
-    # separate (B, r, W) operands and are spliced into the band in VMEM,
-    # so the caller never materializes a halo-concatenated copy in HBM.
-    # The band matrices then carry true tap weights for virtual rows
-    # [-r, h+r) instead of folding clamp at the local edges.
-    mats = halo_band_matrices if vhalo is not None else clamped_band_matrices
-    vmats_np = mats(tile_h, band, taps, h, nh, hb)
-    vmats = jnp.asarray(vmats_np)
-    # Integer-mu vertical passes (round 5): u8 pixel bands are bf16-EXACT
-    # (0..255, 8 significant bits), so the MU blurs' vertical band
-    # matmuls need only a 3-term bf16 split of the BAND MATRICES
-    # (residual ~2^-27 relative, f32-class — see _make_hpass_pchunk_int)
-    # — three DEFAULT passes instead of six HIGHEST. The heavy s^2/d^2
-    # vpasses keep HIGHEST (squared integers reach 18 bits; an exact
-    # signal split would pay 3x3 tap-split passes — no saving). Applies
-    # to every u8 route; float bands are not integer, and the precise
-    # tier keeps its bit-exact-f32 blur contract.
-    vm_intmu = (
-        not float_mode and not precise and _INTMU and pchunk is None
-    )
-    if vm_intmu:
-        v1 = vmats_np.astype(jnp.bfloat16)
-        vrem = vmats_np - v1.astype(np.float32)
-        v2 = vrem.astype(jnp.bfloat16)
-        v3 = (vrem - v2.astype(np.float32)).astype(jnp.bfloat16)
-        vm3 = jnp.asarray(np.stack([v1, v2, v3]))
-    t = [float(v) for v in taps]
-    # pchunk (gutterless packed rows, ssim_parts_pallas_bpacked): the row
-    # is p side-by-side images of pchunk lanes each, with per-image clamp
-    # borders folded into per-chunk block-diagonal tap matrices — ALL
-    # four horizontal blurs ride the MXU (the VPU hpass cannot express
-    # per-image boundaries inside a shifted row).
-    lane_mode = "pchunk" if pchunk is not None else _lane_mode_for(
-        w, precise, relaxed
-    )
-    lane_roll = lane_mode == "roll"
-    # Roll and mxu keep more temporaries live (rolled/bf16-split copies
-    # + edge selects); with a map output block on top, w=3840 exceeds
-    # the default 16 MiB scoped-VMEM window (measured 18.30M; 1920
-    # fits). Rather than fall back to the concat mode (which wastes up
-    # to a third of every op at 128-multiple widths), raise the scoped
-    # limit for exactly that configuration — v5e has 128 MiB physical
-    # VMEM, and the measured throughput cost of the lost double-buffer
-    # headroom is nil (same lever as the backward kernel).
-    budget = _FLOAT_FAST_PATH_BUDGET if float_mode else _FAST_PATH_BUDGET
-    load = tile_h * (w + 2 * r)
-    # Scoped-VMEM tiers for the widened fast path (v5e: 128 MiB physical;
-    # the backward kernel already runs a 100 MiB window): measured on v5e
-    # 2026-08-19 — 64 MiB covers w=16384 u8 at full speed (15.0 Gpix/s),
-    # w=24576 needs 71.6M (the 100 MiB tier; 12.8 Gpix/s — past the
-    # sweet spot but still above the chunked path's 12.3). The measured
-    # cost of the lost double-buffer headroom is nil through 16K.
-    vmem_limit = (
-        (100 if load > 5 * budget else 64 if load > 2 * budget else 32)
-        * 1024 * 1024
-        if (with_map and lane_mode != "concat" and w > 2048) or load > budget
-        else None
-    )
-    # Integer-mu fast path for gutterless packed u8 rows: the mu blurs
-    # run horizontal-first on the raw (bf16-exact) integer band as
-    # 2-pass DEFAULT chunk matmuls — see _make_hpass_pchunk_int.
-    pc_intmu = (
-        lane_mode == "pchunk" and not float_mode and not precise
-        and _INTMU
-    )
-    if lane_mode == "pchunk":
-        hpass = _make_hpass_pchunk(w, r, exact=True)
-        hpass_mxu = (
-            _make_hpass_pchunk(w, r, exact=False) if relaxed else hpass
-        )
-        hpass_int = _make_hpass_pchunk_int(w, r) if pc_intmu else None
-        hmat_np = packed_chunk_matrices(pchunk, w // pchunk, taps)
-        hmat = jnp.asarray(hmat_np)
-        if pc_intmu:
-            h1 = hmat_np.astype(jnp.bfloat16)
-            rem = hmat_np - h1.astype(np.float32)
-            h2 = rem.astype(jnp.bfloat16)
-            h3 = (rem - h2.astype(np.float32)).astype(jnp.bfloat16)
-            hm12 = jnp.asarray(np.stack([h1, h2, h3]))
-    elif lane_roll:
-        hpass = hpass_mxu = _make_hpass_roll(t, r, w)
-    elif lane_mode in ("mxu", "mxu3x"):
-        # Split across units: mu-blurs on the VPU, the heavy squared-
-        # signal blurs on the MXU — see _lane_mode_for.
-        hpass = _make_hpass(t, r, w, co=r)
-        hpass_mxu = _make_hpass_mxu(w, r, exact=lane_mode == "mxu")
-    else:
-        hpass = hpass_mxu = _make_hpass(t, r, w, co=r)
-    if lane_mode != "pchunk":
-        hmat = jnp.asarray(hpass_tap_matrix(taps))
-
-    # vhalo splice geometry (all static): virtual row h lands at band
-    # position pos_last in the last block; the second-to-last block can
-    # also reach past h when the last block is thinner than the radius.
-    last_rows = h - (nh - 1) * tile_h
-    pos_last = hb + last_rows
-
-    def kernel(vm_ref, hm_ref, ap_ref, ac_ref, an_ref, bp_ref, bc_ref, bn_ref,
-               *rest):
-        fl_ref = None
-        hm12_ref = None
-        vm3_ref = None
-        if vm_intmu:
-            vm3_ref = rest[0]
-            rest = rest[1:]
-        if pc_intmu:
-            hm12_ref = rest[0]
-            rest = rest[1:]
-        if vhalo is not None:
-            at_ref, ab_ref, bt_ref, bb_ref = rest[:4]
-            rest = rest[4:]
-            if vmask is not None:
-                fl_ref = rest[0]
-                rest = rest[1:]
-            out_refs = rest
-        else:
-            out_refs = rest
-        i = pl.program_id(1)
-        vm = vm_ref[0]
-        hpass_pc_mu = None
-        hpass_pc_int = None
-        if lane_mode == "pchunk":
-            hm = hm_ref[...]
-            hpass_heavy = lambda x: hpass_mxu(x, hm)
-            hpass_pc_mu = lambda x: hpass(x, hm)
-            if pc_intmu:
-                hm12_v = hm12_ref[...]
-                hpass_pc_int = lambda x: hpass_int(x, hm12_v)
-        elif lane_mode in ("mxu", "mxu3x"):
-            hm = hm_ref[...]
-            hpass_heavy = lambda x: hpass_mxu(x, hm)
-        else:
-            hpass_heavy = hpass_mxu
-
-        def to_f32(raw):
-            if raw.dtype == jnp.uint8:
-                return raw.astype(jnp.int32).astype(jnp.float32)
-            # Float inputs: ragged edge blocks carry uninitialized
-            # VMEM garbage that can be NaN/inf or huge-finite, which
-            # the band matrices' zero weights cannot neutralize once
-            # squared (0*inf = NaN — observed on real TPU, not in
-            # interpret mode). u8 garbage is always finite and small.
-            # nan_to_num alone is NOT enough: it maps inf to 3.4e38,
-            # whose square overflows right back to inf. The clip
-            # bound scales with data_range so legitimate HDR-range
-            # pixels survive; real NaN/inf INPUT pixels are poisoned
-            # back into the outputs below (the sanitize here may only
-            # remove garbage, never hide bad input).
-            return jnp.clip(
-                jnp.nan_to_num(raw.astype(jnp.float32)),
-                -clip_bound, clip_bound,
-            )
-
-        def band_of(prev_ref, cur_ref, nxt_ref, top_ref=None, bot_ref=None):
-            raw = to_f32(jnp.concatenate(
-                [prev_ref[0, tile_h - hb :], cur_ref[0], nxt_ref[0, :hb]],
-                axis=0,
-            ))
-            if top_ref is not None:
-                # Halo-operand splice (static offsets, selected on the
-                # block index): the top halo covers virtual rows [-r, 0)
-                # — band positions [hb-r, hb) of block 0 — and the bottom
-                # halo virtual rows [h, h+r) — position pos_last of the
-                # last block (and pos_last + tile_h of the one before it
-                # when the ragged last block is thinner than the radius).
-                # The spliced positions only ever hold clamp-duplicated
-                # or garbage rows, which carry zero band-matrix weight in
-                # the clamped variant and true tap weight here.
-                top = to_f32(top_ref[0])
-                bot = to_f32(bot_ref[0])
-                bot2 = bot
-                if fl_ref is not None:
-                    # vmask mode: the operands are RAW ppermute outputs
-                    # (ring-wrapped garbage at the true image edges);
-                    # substitute clamp replicas of the local edge rows
-                    # in VMEM, gated on the is_top/is_bot flags. This
-                    # keeps the entire host-side exchange to two stacked
-                    # ppermutes with no replica construction in the XLA
-                    # graph (honest carried-perturbation measurement puts
-                    # the full sharded path at kernel parity either way —
-                    # tools/probe_spatial.py, which also documents the
-                    # fori-loop hoisting artifact that once made host-
-                    # built operands look 2.4x slower).
-                    # Replica sources are static band rows: local row 0
-                    # sits at band position hb (block 0), local row h-1
-                    # at hb + last_rows - 1 (last block) / one tile
-                    # deeper (second-to-last block's partial splice).
-                    it_f = fl_ref[0, 0]
-                    ib_f = fl_ref[0, 1]
-
-                    def rep(src, nrows):
-                        return jnp.broadcast_to(
-                            raw[src : src + 1], (nrows,) + raw.shape[1:]
-                        )
-
-                    top = jnp.where(it_f > 0, rep(hb, r), top)
-                    bot1 = jnp.where(
-                        ib_f > 0, rep(hb + last_rows - 1, r), bot
-                    )
-                    bot2 = jnp.where(
-                        ib_f > 0,
-                        rep(min(hb + tile_h + last_rows - 1, band - 1), r),
-                        bot,
-                    )
-                else:
-                    bot1 = bot
-
-                def splice(x, part, pos):
-                    # All offsets are static, so this is a concat of
-                    # static slices (Mosaic has no dynamic_update_slice);
-                    # empty edge slices are skipped (Mosaic rejects
-                    # zero-size vectors — hb == r at radius 8/16).
-                    pieces = []
-                    if pos > 0:
-                        pieces.append(x[:pos])
-                    pieces.append(part)
-                    if pos + part.shape[0] < x.shape[0]:
-                        pieces.append(x[pos + part.shape[0] :])
-                    if len(pieces) == 1:
-                        return pieces[0]
-                    return jnp.concatenate(pieces, axis=0)
-
-                raw = jnp.where(i == 0, splice(raw, top, hb - r), raw)
-                raw = jnp.where(i == nh - 1, splice(raw, bot1, pos_last), raw)
-                if nh >= 2 and last_rows < r:
-                    pos2 = pos_last + tile_h
-                    part = bot2[: band - pos2] if band - pos2 < r else bot2
-                    raw = jnp.where(i == nh - 2, splice(raw, part, pos2), raw)
-            if lane_roll:
-                # The roll-mode hpass clamps edges itself; the band stays
-                # exactly w lanes (no vreg-boundary waste).
-                return raw
-            # In-VMEM clamp-to-edge lane halo (reference border rule,
-            # src/ssim.cpp:540-555). The mxu mode widens the right fill
-            # to the 128-lane chunk grid so every chunk slice is in
-            # range (the extra replica lanes' outputs are discarded).
-            right_fill = (
-                (-(-w // 128) * 128 + r) - w
-                if lane_mode in ("mxu", "mxu3x", "pchunk") else r
-            )
-            left = jnp.broadcast_to(raw[:, :1], (band, r))
-            right = jnp.broadcast_to(raw[:, w - 1 : w], (band, right_fill))
-            return jnp.concatenate([left, raw, right], axis=1)
-
-        if vhalo is not None:
-            af = band_of(ap_ref, ac_ref, an_ref, at_ref, ab_ref)
-            bf = band_of(bp_ref, bc_ref, bn_ref, bt_ref, bb_ref)
-        else:
-            af = band_of(ap_ref, ac_ref, an_ref)
-            bf = band_of(bp_ref, bc_ref, bn_ref)
-        s = af + bf
-        d = af - bf
-
-        def vpass(x):
-            return jax.lax.dot_general(
-                vm, x, (((1,), (0,)), ((), ())),
-                preferred_element_type=jnp.float32,
-                precision=jax.lax.Precision.HIGHEST,
-            )
-
-        if vm3_ref is not None:
-            vm3 = vm3_ref[:, 0]  # (3, tile_h, band) bf16 split terms
-
-            def vpass_int(x):
-                # Integer-mu vertical pass: the raw u8 band is bf16-exact,
-                # so three DEFAULT passes against the 3-term bf16 split of
-                # the band matrix replace the 6-pass HIGHEST dot
-                # (residual ~2^-27 — f32-class).
-                x1 = x.astype(jnp.bfloat16)
-                acc = None
-                for k in range(3):
-                    d3 = jax.lax.dot_general(
-                        vm3[k], x1, (((1,), (0,)), ((), ())),
-                        preferred_element_type=jnp.float32,
-                        precision=jax.lax.Precision.DEFAULT,
-                    )
-                    acc = d3 if acc is None else acc + d3
-                return acc
-        else:
-            vpass_int = vpass
-
-        hpass_mu = hpass_pc_mu if hpass_pc_mu is not None else (
-            hpass_heavy
-            if _MU_MXU and lane_mode in ("mxu", "mxu3x")
-            else hpass
-        )
-        if hpass_pc_int is not None:
-            # Packed integer-mu: horizontal-first on the bf16-exact raw
-            # band (3-pass DEFAULT), vertical HIGHEST after.
-            mu_of = lambda x: vpass(hpass_pc_int(x))
-        else:
-            mu_of = lambda x: hpass_mu(vpass_int(x))
-        blurs = (
-            mu_of(af),
-            mu_of(bf),
-            hpass_heavy(vpass(s * s)),
-            hpass_heavy(vpass(d * d)),
-        )
-        if precise:
-            ssim, ssim_lo = _ssim_from_blurs_df32(*blurs, c1, c2)
-        elif components:
-            lum, cs = _l_cs_from_blurs(*blurs, c1, c2)
-            ssim = lum * cs
-            ssim_lo = None
-        else:
-            ssim = _ssim_from_blurs(*blurs, c1, c2)
-            ssim_lo = None
-
-        if float_mode:
-            # The band sanitize above hides NaN/inf *input* pixels, which
-            # the XLA path would propagate as an invalid-input signal.
-            # Restore that contract: sum the tile's own valid (unsanitized)
-            # pixels and multiply by 0 — exactly 0.0 when all are finite,
-            # NaN otherwise — and poison every output with it. In colsum
-            # (packed) mode the poison stays PER COLUMN so a NaN pixel in
-            # one packed image cannot poison its lane neighbors (the blur
-            # itself never crosses slot gutters, so per-image isolation
-            # only hinges on this term).
-            src = ac_ref[0].astype(jnp.float32) + bc_ref[0].astype(jnp.float32)
-            if h % tile_h != 0:
-                # uninitialized garbage rows of the last ragged block
-                rid = jax.lax.broadcasted_iota(jnp.int32, (tile_h, w), 0)
-                src = jnp.where(rid < h - i * tile_h, src, 0.0)
-            pois = (jnp.sum(src, axis=0) if colsum else jnp.sum(src)) * 0.0
-            ssim = ssim + pois
-            if components:
-                cs = cs + pois
-            if precise:
-                ssim_lo = ssim_lo + pois
-
-        if colsum:
-            # Packed-batch mode (ssim_parts_pallas_packed): emit per-LANE
-            # sums of (ssim - 1) so the host can segment-sum arbitrary
-            # image slots out of one packed row. Garbage rows of the
-            # ragged last tile are exactly 1.0 (zero band weights), so
-            # columns need no row masking; gutter lanes carry finite
-            # junk the caller masks by slot. In precise mode the column
-            # sums are compensated (df32 pairwise tree per lane) and the
-            # lo plane rides as a second output row — garbage rows are
-            # hi=1, lo=0 exactly, so they still contribute 0 to (x - 1).
-            (sum_ref,) = out_refs
-            if precise:
-                hi_c, lo_c = _df_colsum(ssim - 1.0, ssim_lo)
-                sum_ref[0, 0, 0] = hi_c
-                sum_ref[0, 0, 1] = lo_c
-            else:
-                sum_ref[0, 0, 0] = jnp.sum(ssim - 1.0, axis=0)
-            return
-
-        if rowsum:
-            # Score-only spatial sharding (parallel/spatial.py): emit
-            # per-ROW sums of (ssim - 1) instead of the full map, cutting
-            # the kernel's HBM writes from H*W*4 to H*4 bytes. The host
-            # adds back w per valid row (one f32 rounding — finer than
-            # f32-summing the map's w near-1.0 terms) and slices off the
-            # ragged garbage rows (whose (ssim - 1) sum is exactly 0:
-            # zero band weights make their SSIM 1.0).
-            (sum_ref,) = out_refs
-            sum_ref[0] = jnp.sum(ssim - 1.0, axis=1, keepdims=True)
-            return
-
+TILE_H = 64
+TILE_W = 128
+NUM_WARPS = 4
+
+
+def _kernel(a_ref, b_ref, *out_refs, h, w, row_offset, out_h, radius, taps,
+            c1, c2, with_map):
+    p_ref = out_refs[0]
+    r = radius
+    bi = pl.program_id(0)
+    ti = pl.program_id(1)
+    tj = pl.program_id(2)
+    row0 = row_offset + ti * TILE_H
+    cols = tj * TILE_W + jnp.arange(TILE_W, dtype=jnp.int32)
+    ccols = [jnp.clip(cols + d, 0, w - 1) for d in range(-r, r + 1)]
+
+    def hpass(i):
+        """Horizontally blurred (a, b, (a+b)^2, (a-b)^2) of input row
+        row0 - r + i (clamped to the image)."""
+        row = jnp.clip(row0 - r + i, 0, h - 1)
+
+        def signals(k):
+            a = a_ref[bi, row, ccols[k]].astype(jnp.float32)
+            b = b_ref[bi, row, ccols[k]].astype(jnp.float32)
+            s = a + b
+            d = a - b
+            return a, b, s * s, d * d
+
+        return _symmetric_sum(signals, taps, r)
+
+    def vpass(ring):
+        return _symmetric_sum(lambda k: ring[k], taps, r)
+
+    def prime(i, ring):
+        return ring[1:] + (hpass(i),)
+
+    def body(i, carry):
+        ring, colsum = carry
+        ring = ring[1:] + (hpass(i),)
+        mu_a, mu_b, ss, dd = vpass(ring)
+        mu_ab = mu_a * mu_b
+        mu_sq = mu_a * mu_a + mu_b * mu_b
+        num = (2.0 * mu_ab + c1) * ((0.5 * (ss - dd) - 2.0 * mu_ab) + c2)
+        den = (mu_sq + c1) * ((0.5 * (ss + dd) - mu_sq) + c2)
+        smap = num / den
+        out_row = row0 + i - 2 * r - row_offset
+        valid = (cols < w) & (out_row < out_h)
         if with_map:
-            map_ref, sum_ref = out_refs
-            map_ref[0] = ssim
-        elif pool_out:
-            sum_ref, pa_ref, pb_ref = out_refs
-        else:
-            (sum_ref,) = out_refs
-
-        if pool_out:
-            # Fused 2x2-mean pool of the raw u8 tiles (the MS-SSIM
-            # scale-0 downsample) — EXACT, via MXU matmuls with 2-hot
-            # pooling matrices, sidestepping Mosaic's unsupported
-            # stride-2 slicing (docs/RESULTS.md "MS-SSIM structural
-            # limit"). Exactness: u8 values are bf16-representable, so
-            # the vertical pairing (pv @ x, DEFAULT precision) is exact
-            # in the MXU's f32 accumulator; the row-pair sums (<= 510
-            # integer, up to 9 significant bits) are NOT bf16-exact, so
-            # the horizontal pairing splits them into bf16-exact
-            # y_hi + y_lo (|y_lo| <= 2 after round-to-nearest) and sums
-            # two DEFAULT-precision dots. Output rows past h//2 pool
-            # ragged-tile garbage (finite for u8) and are sliced off by
-            # the caller.
-            th2, w2 = tile_h // 2, w // 2
-            prid = jax.lax.broadcasted_iota(jnp.int32, (th2, tile_h), 0)
-            pcid = jax.lax.broadcasted_iota(jnp.int32, (th2, tile_h), 1)
-            pv = jnp.where(pcid // 2 == prid, 1.0, 0.0).astype(jnp.float32)
-            hrid = jax.lax.broadcasted_iota(jnp.int32, (128, 64), 0)
-            hcid = jax.lax.broadcasted_iota(jnp.int32, (128, 64), 1)
-            ph = jnp.where(hrid // 2 == hcid, 1.0, 0.0).astype(jnp.float32)
-
-            def pool2(cur_ref):
-                if float_mode:
-                    # f32 scales (round 5: the pyramid's scale-1..3 pools
-                    # fuse too): arbitrary f32 values do not split into
-                    # two exact bf16 terms, so both pairings use HIGHEST
-                    # dots — f32-equivalent (~ulp of _downsample2, NOT
-                    # bitwise; the float pooled test tier is
-                    # tolerance-based). NaN input pixels propagate into
-                    # the pooled next scale, as reduce_window would.
-                    x = cur_ref[0].astype(jnp.float32)
-                    y = jax.lax.dot_general(
-                        pv, x, (((1,), (0,)), ((), ())),
-                        preferred_element_type=jnp.float32,
-                        precision=jax.lax.Precision.HIGHEST,
-                    )
-                    cols = []
-                    for c in range(0, 2 * w2, 128):
-                        n_in = min(128, 2 * w2 - c)
-                        seg_m = ph[:n_in, : n_in // 2]
-                        cols.append(jax.lax.dot_general(
-                            y[:, c : c + n_in], seg_m,
-                            (((1,), (0,)), ((), ())),
-                            preferred_element_type=jnp.float32,
-                            precision=jax.lax.Precision.HIGHEST,
-                        ))
-                    p = (cols[0] if len(cols) == 1
-                         else jnp.concatenate(cols, axis=1))
-                    return p * 0.25
-                x = cur_ref[0].astype(jnp.int32).astype(jnp.float32)
-                y = jax.lax.dot_general(
-                    pv, x, (((1,), (0,)), ((), ())),
-                    preferred_element_type=jnp.float32,
-                )
-                y_hi = y.astype(jnp.bfloat16).astype(jnp.float32)
-                y_lo = y - y_hi
-                cols = []
-                for c in range(0, 2 * w2, 128):
-                    n_in = min(128, 2 * w2 - c)
-                    seg_m = ph[:n_in, : n_in // 2]
-                    d = None
-                    for part in (y_hi, y_lo):
-                        dd = jax.lax.dot_general(
-                            part[:, c : c + n_in], seg_m,
-                            (((1,), (0,)), ((), ())),
-                            preferred_element_type=jnp.float32,
-                        )
-                        d = dd if d is None else d + dd
-                    cols.append(d)
-                p = cols[0] if len(cols) == 1 else jnp.concatenate(cols, axis=1)
-                return p * 0.25
-
-            pa_ref[0] = pool2(ac_ref)
-            pb_ref[0] = pool2(bc_ref)
-
-        # No in-kernel masking of the last ragged tile (a lax.cond
-        # masked-sum measured 2.3% of 4K throughput): its out-of-image
-        # rows have all-zero band-matrix weights, so their SSIM is the
-        # deterministic constant (c1*c2)/(c1*c2) = 1.0 exactly (hi=1,
-        # lo=0 in precise mode; l=cs=1 in components mode). Summing
-        # (x - 1) makes those rows contribute exactly 0, and the exact
-        # valid-pixel count is added back as a scalar — which ALSO
-        # improves accuracy everywhere: the residual sum has magnitude
-        # ~|1-ssim|*n instead of n, so its f32 ulp is far finer.
-        n_valid = (
-            jnp.minimum(h - i * tile_h, tile_h).astype(jnp.float32) * w
-        )
-        if precise:
-            # Compensated reduction; the lo-sum rides as an extra partial
-            # and the host finalize f64-sums all partials, recovering
-            # both the formula and the summation compensation.
-            hi_s, lo_s = _df_sum_2d(ssim - 1.0, ssim_lo)
-            hi_s, e = _two_sum(hi_s, n_valid)
-            sum_ref[0, 0, 0, 0] = hi_s
-            sum_ref[0, 0, 0, 1] = lo_s + e
-        elif components:
-            # MS-SSIM components: [cs-sum, ssim-sum] per tile.
-            sum_ref[0, 0, 0, 0] = jnp.sum(cs - 1.0) + n_valid
-            sum_ref[0, 0, 0, 1] = jnp.sum(ssim - 1.0) + n_valid
-        else:
-            sum_ref[0, 0, 0, 0] = jnp.sum(ssim - 1.0) + n_valid
-
-    def spec(di):
-        if di < 0:
-            index = lambda bi, i: (bi, jnp.maximum(i - 1, 0), 0)
-        elif di > 0:
-            index = lambda bi, i: (bi, jnp.minimum(i + 1, nh - 1), 0)
-        else:
-            index = lambda bi, i: (bi, i, 0)
-        return pl.BlockSpec((1, tile_h, w), index, memory_space=pltpu.VMEM)
-
-    specs = [spec(-1), spec(0), spec(1)]
-    halo_specs = [
-        pl.BlockSpec((1, r, w), lambda bi, i: (bi, 0, 0),
-                     memory_space=pltpu.VMEM)
-    ] * 4
-    vm_spec = pl.BlockSpec((1, tile_h, band), lambda bi, i: (i, 0, 0),
-                           memory_space=pltpu.VMEM)
-    if lane_mode == "pchunk":
-        hm_spec = pl.BlockSpec(hmat.shape, lambda bi, i: (0, 0, 0),
-                               memory_space=pltpu.VMEM)
-    else:
-        hm_spec = pl.BlockSpec((128 + 2 * r, 128), lambda bi, i: (0, 0),
-                               memory_space=pltpu.VMEM)
-    out_shapes = []
-    out_specs = []
-    if with_map:
-        out_shapes.append(
-            jax.ShapeDtypeStruct((batch, nh * tile_h, w), jnp.float32)
-        )
-        out_specs.append(
-            pl.BlockSpec((1, tile_h, w), lambda bi, i: (bi, i, 0),
-                         memory_space=pltpu.VMEM)
-        )
-    if colsum:
-        kc = 2 if precise else 1
-        out_shapes.append(jax.ShapeDtypeStruct((batch, nh, kc, w), jnp.float32))
-        out_specs.append(
-            pl.BlockSpec((1, 1, kc, w), lambda bi, i: (bi, i, 0, 0),
-                         memory_space=pltpu.VMEM)
-        )
-        n_sums = None
-    elif rowsum:
-        out_shapes.append(
-            jax.ShapeDtypeStruct((batch, nh * tile_h, 1), jnp.float32)
-        )
-        out_specs.append(
-            pl.BlockSpec((1, tile_h, 1), lambda bi, i: (bi, i, 0),
-                         memory_space=pltpu.VMEM)
-        )
-        n_sums = None
-    else:
-        n_sums = 2 if (precise or components) else 1
-        out_shapes.append(jax.ShapeDtypeStruct((batch, nh, 1, n_sums), jnp.float32))
-        out_specs.append(
-            pl.BlockSpec((1, 1, 1, n_sums), lambda bi, i: (bi, i, 0, 0),
-                         memory_space=pltpu.SMEM)
-        )
-    if pool_out:
-        th2, w2 = tile_h // 2, w // 2
-        for _ in range(2):
-            out_shapes.append(
-                jax.ShapeDtypeStruct((batch, nh * th2, w2), jnp.float32)
+            plgpu.store(
+                out_refs[1].at[bi, jnp.minimum(out_row, out_h - 1),
+                               pl.ds(tj * TILE_W, TILE_W)],
+                smap, mask=valid,
             )
-            out_specs.append(
-                pl.BlockSpec((1, th2, w2), lambda bi, i: (bi, i, 0),
-                             memory_space=pltpu.VMEM)
-            )
+        return ring, colsum + jnp.where(valid, smap, 0.0)
 
-    halo_ops = ()
-    extra_specs = []
-    if vm_intmu:
-        halo_ops = halo_ops + (vm3,)
-        extra_specs.append(
-            pl.BlockSpec((3, 1, tile_h, band), lambda bi, i: (0, i, 0, 0),
-                         memory_space=pltpu.VMEM)
-        )
-    if pc_intmu:
-        halo_ops = halo_ops + (hm12,)
-        extra_specs.append(
-            pl.BlockSpec(hm12.shape, lambda bi, i: (0, 0, 0, 0),
-                         memory_space=pltpu.VMEM)
-        )
-    if vhalo is not None:
-        halo_ops = halo_ops + tuple(vhalo)  # (a_top, a_bot, b_top, b_bot)
-        extra_specs.extend(halo_specs)
-        if vmask is not None:
-            flags = jnp.stack(
-                [jnp.asarray(x, jnp.float32) for x in vmask]
-            ).reshape(1, 2)
-            halo_ops = halo_ops + (flags,)
-            extra_specs.append(
-                pl.BlockSpec((1, 2), lambda bi, i: (0, 0),
-                             memory_space=pltpu.SMEM)
-            )
-    outs = pl.pallas_call(
-        kernel,
-        grid=(batch, nh),
-        in_specs=[vm_spec, hm_spec] + specs + specs + extra_specs,
-        out_shape=tuple(out_shapes),
-        out_specs=tuple(out_specs),
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("parallel", "parallel"),
-            vmem_limit_bytes=vmem_limit,
-        ),
-        interpret=interpret,
-    )(vmats, hmat, a, a, a, b, b, b, *halo_ops)
-
-    if with_map:
-        map_padded, tile_sums = outs
-        ssim_map = map_padded[:, :h, :]
-    elif pool_out:
-        tile_sums, pool_a, pool_b = outs
-        ssim_map = (pool_a[:, : h // 2, :], pool_b[:, : h // 2, :])
-    else:
-        (tile_sums,) = outs
-        ssim_map = None
-    if colsum:
-        if precise:
-            # Reduce the nh tile rows with df32 adds (plain f32 adds here
-            # would spend the compensation the kernel just preserved).
-            ts = tile_sums.reshape(batch, nh, 2, w)
-            acc = (ts[:, 0, 0], ts[:, 0, 1])
-            for i in range(1, nh):
-                acc = _df_add(acc, (ts[:, i, 0], ts[:, i, 1]))
-            return jnp.stack(acc, axis=1), None  # (batch, 2, w)
-        return tile_sums.reshape(batch, nh, w).sum(axis=1), None
-    if rowsum:
-        rows = tile_sums.reshape(batch, nh * tile_h)[:, :h]
-        return rows + jnp.float32(w), None
-    return tile_sums.reshape(batch, nh * n_sums), ssim_map
+    zero = jnp.zeros((TILE_W,), jnp.float32)
+    ring = tuple((zero,) * 4 for _ in range(2 * r + 1))
+    ring = jax.lax.fori_loop(0, 2 * r, prime, ring)
+    _, colsum = jax.lax.fori_loop(2 * r, TILE_H + 2 * r, body, (ring, zero))
+    p_ref[bi, ti, tj] = jnp.sum(colsum)
 
 
-#: Max lane-chunk width of the wide-image path (VMEM-bound; 4096 fits at
-#: tile_h 32 on v5e).
-MAX_CHUNK_W = 4096
-
-
-def _pick_chunk_w(w: int, tile_h: int = TILE_H, itemsize: int = 1) -> int:
-    """Chunk width minimizing total computed lanes nc*(cw + 256): the
-    256-lane halo concat argues for wide chunks, ragged last-chunk waste
-    for chunks that divide the width. Measured on v5e at 8K: 3840 (exact
-    2-chunk cover) runs 11.0 Gpix/s vs 9.8 for the fixed 2048/4096.
-
-    The VMEM working set scales with tile_h * chunk_w * itemsize; 4096
-    u8 lanes were validated at tile_h 32, so the cap shrinks
-    proportionally for taller tiles (cfg.max_tile_h can push tile_h to
-    256) and for wider dtypes (the float path's blocks are 4x u8's).
-    """
-    budget = MAX_CHUNK_W * TILE_H // max(1, itemsize)
-    max_chunk = max(512, min(MAX_CHUNK_W, budget // tile_h // 128 * 128))
-    best_cw, best_cost = None, None
-    nc_min = -(-w // max_chunk)
-    for nc in range(nc_min, nc_min + 4):
-        cw = _round_up(-(-w // nc), 128)
-        if cw > max_chunk:
-            continue
-        cost = nc * (cw + 2 * COL_OVERLAP)
-        if best_cost is None or cost < best_cost:
-            best_cw, best_cost = cw, cost
-    return best_cw
-
-
-def _chunked_overlap_call(a, b, h, w, taps, c1, c2, with_map, interpret, max_tile_h,
-                          precise=False, components=False, clip_bound=131072.0,
-                          relaxed=False, rowsum=False):
-    """Wide-image path (w beyond one tile): the zero-copy overlap design
-    generalized to a 2-D grid of lane chunks. Like the fast path, the RAW
-    (B, H, W) images are consumed directly — no padding pass, no HBM
-    round trip. Each kernel instance reads NINE blocks per image: the
-    prev/cur/next row blocks of its own lane chunk plus prev/cur/next row
-    blocks of two 128-lane neighbor strips (the lane-left and lane-right
-    blocks, via clamped lane index maps). Vertical clamp-to-edge rides
-    the same per-tile band matrices as the fast path
-    (clamped_band_matrices); horizontal clamp is resolved in VMEM — the
-    left halo comes from the left strip (chunk 0 replicates column 0),
-    and every lane at-or-past the image edge is replaced by column w-1,
-    extracted with a masked sum (the dynamic-edge equivalent of the fast
-    path's broadcast). This is the TPU shape of the reference's fully
-    general 2-D tile grid with margins (src/ssim.cpp:227-239,902-926).
-    """
-    r = len(taps) // 2
-    hb = _halo_rows(r)
-    batch = a.shape[0]
-    float_mode = a.dtype == jnp.float32
-    tile_h = max(32, min(max_tile_h, 256) // 32 * 32)
-    nh = -(-h // tile_h)
-    chunk_w = _pick_chunk_w(w, tile_h, a.dtype.itemsize)
-    nc = -(-w // chunk_w)
-    lw = chunk_w // 128  # lane blocks per chunk (chunk_w is 128-aligned)
-    nlb = -(-w // 128)   # lane blocks in the raw array
-    band = tile_h + 2 * hb
-    vmats_np = clamped_band_matrices(tile_h, band, taps, h, nh, hb)
-    vmats = jnp.asarray(vmats_np)
-    # Integer-mu vertical passes for u8 (same trick as the fast path:
-    # 3-term bf16 matrix split, 3 DEFAULT passes instead of 6 HIGHEST).
-    vm_intmu = not float_mode and not precise and _INTMU
-    if vm_intmu:
-        v1s = vmats_np.astype(jnp.bfloat16)
-        vrem = vmats_np - v1s.astype(np.float32)
-        v2s = vrem.astype(jnp.bfloat16)
-        v3s = (vrem - v2s.astype(np.float32)).astype(jnp.bfloat16)
-        vm3 = jnp.asarray(np.stack([v1s, v2s, v3s]))
-    t = [float(v) for v in taps]
-    hpass = _make_hpass(t, r, chunk_w, co=r)
-    # Same unit-split as the fast path (see _lane_mode_for): chunk
-    # widths are always >= 512, so the MXU lane mode applies whenever
-    # the mode policy allows it (not precise, not env-overridden).
-    lane_mode = _lane_mode_for(chunk_w, precise, relaxed)
-    if lane_mode in ("mxu", "mxu3x"):
-        hpass_mxu = _make_hpass_mxu(chunk_w, r, exact=lane_mode == "mxu")
-    else:
-        hpass_mxu = None
-    hmat = jnp.asarray(hpass_tap_matrix(taps))
-
-    def kernel(vm_ref, hm_ref,
-               amp, amc, amn, alp, alc, aln, arp, arc, arn,
-               bmp, bmc, bmn, blp, blc, bln, brp, brc, brn,
-               *rest):
-        vm3_ref = None
-        if vm_intmu:
-            vm3_ref = rest[0]
-            rest = rest[1:]
-        out_refs = rest
-        i = pl.program_id(1)
-        c = pl.program_id(2)
-        vm = vm_ref[0]
-        if hpass_mxu is not None:
-            hm = hm_ref[...]
-            hpass_heavy = lambda x: hpass_mxu(x, hm)
-        else:
-            hpass_heavy = hpass
-
-        def rows_of(prev_ref, cur_ref, nxt_ref):
-            raw = jnp.concatenate(
-                [prev_ref[0, tile_h - hb :], cur_ref[0], nxt_ref[0, :hb]],
-                axis=0,
-            )
-            if raw.dtype == jnp.uint8:
-                return raw.astype(jnp.int32).astype(jnp.float32)
-            # See the fast path's float-garbage note (0*inf = NaN).
-            return jnp.clip(
-                jnp.nan_to_num(raw.astype(jnp.float32)),
-                -clip_bound, clip_bound,
-            )
-
-        def band_of(m3, l3, r3):
-            main = rows_of(*m3)   # (band, chunk_w), global lanes from c*cw
-            left = rows_of(*l3)   # (band, 128), lanes [c*cw-128, c*cw)
-            right = rows_of(*r3)  # (band, 128), lanes [(c+1)*cw, ...)
-            # Right side: extend by the strip's first r lanes, then clamp
-            # every lane at-or-past the image edge to column w-1, whose
-            # value always lies inside `ext` whenever any lane needs it
-            # (ext is contiguous from c*chunk_w < w to (c+1)*chunk_w+r-1).
-            ext = jnp.concatenate([main, right[:, :r]], axis=1)
-            gl = (
-                jax.lax.broadcasted_iota(jnp.int32, ext.shape, 1)
-                + c * chunk_w
-            )
-            ev = jnp.sum(
-                jnp.where(gl == w - 1, ext, 0.0), axis=1, keepdims=True
-            )
-            ext = jnp.where(gl <= w - 1, ext, ev)
-            # Left halo: the previous chunk's last r lanes; chunk 0's
-            # out-of-image lanes replicate column 0 (which IS main's
-            # lane 0 exactly when the where fires).
-            gll = (
-                jax.lax.broadcasted_iota(jnp.int32, (band, r), 1)
-                + c * chunk_w - r
-            )
-            lh = jnp.where(
-                gll >= 0,
-                jax.lax.slice_in_dim(left, 128 - r, 128, axis=1),
-                jnp.broadcast_to(main[:, :1], (band, r)),
-            )
-            return jnp.concatenate([lh, ext], axis=1)  # (band, cw + 2r)
-
-        af = band_of((amp, amc, amn), (alp, alc, aln), (arp, arc, arn))
-        bf = band_of((bmp, bmc, bmn), (blp, blc, bln), (brp, brc, brn))
-        s = af + bf
-        d = af - bf
-
-        def vpass(x):
-            return jax.lax.dot_general(
-                vm, x, (((1,), (0,)), ((), ())),
-                preferred_element_type=jnp.float32,
-                precision=jax.lax.Precision.HIGHEST,
-            )
-
-        if vm3_ref is not None:
-            vm3k = vm3_ref[:, 0]
-
-            def vpass_int(x):
-                x1 = x.astype(jnp.bfloat16)
-                acc = None
-                for k in range(3):
-                    d3 = jax.lax.dot_general(
-                        vm3k[k], x1, (((1,), (0,)), ((), ())),
-                        preferred_element_type=jnp.float32,
-                        precision=jax.lax.Precision.DEFAULT,
-                    )
-                    acc = d3 if acc is None else acc + d3
-                return acc
-        else:
-            vpass_int = vpass
-
-        hpass_mu = (
-            hpass_heavy
-            if _MU_MXU and lane_mode in ("mxu", "mxu3x")
-            else hpass
-        )
-        blurs = (
-            hpass_mu(vpass_int(af)),
-            hpass_mu(vpass_int(bf)),
-            hpass_heavy(vpass(s * s)),
-            hpass_heavy(vpass(d * d)),
-        )
-        if precise:
-            ssim, ssim_lo = _ssim_from_blurs_df32(*blurs, c1, c2)
-        elif components:
-            lum, cs = _l_cs_from_blurs(*blurs, c1, c2)
-            ssim = lum * cs
-            ssim_lo = None
-        else:
-            ssim = _ssim_from_blurs(*blurs, c1, c2)
-            ssim_lo = None
-
-        if float_mode:
-            # NaN/inf input poisoning (see the fast path's note), from
-            # the tile's own valid cells only — edge blocks' ragged cells
-            # are uninitialized VMEM garbage here (zero-copy), so both
-            # row and lane overhang are masked out of the poison source.
-            src = amc[0].astype(jnp.float32) + bmc[0].astype(jnp.float32)
-            rid = jax.lax.broadcasted_iota(jnp.int32, (tile_h, chunk_w), 0)
-            cid = jax.lax.broadcasted_iota(jnp.int32, (tile_h, chunk_w), 1)
-            valid = (rid < h - i * tile_h) & (cid < w - c * chunk_w)
-            pois = jnp.sum(jnp.where(valid, src, 0.0)) * 0.0
-            ssim = ssim + pois
-            if components:
-                cs = cs + pois
-            if precise:
-                ssim_lo = ssim_lo + pois
-
-        if with_map:
-            map_ref, sum_ref = out_refs
-            map_ref[0] = ssim
-        else:
-            (sum_ref,) = out_refs
-
-        # Ragged edges: garbage ROWS cost nothing (zero band-matrix
-        # weights make their SSIM exactly 1.0, and the sums below add
-        # (x - 1)); lanes at-or-past the image edge were replaced by
-        # edge-replica values above — real-valued SSIM — so they are
-        # masked. Summing (x - 1) + the exact valid count keeps the
-        # residual magnitude small, like the fast path.
-        partial_cols = nc * chunk_w != w
-
-        def mask_cols(x):
-            if not partial_cols:
-                return x
-            cid = jax.lax.broadcasted_iota(jnp.int32, (tile_h, chunk_w), 1)
-            return jnp.where(cid < w - c * chunk_w, x, 0.0)
-
-        if rowsum:
-            # Per-row (ssim - 1) partials per lane chunk (see the fast
-            # path's rowsum note); the host sums the chunk axis and adds
-            # back w per valid row. The chunk axis sits AHEAD of the row
-            # axis in the output so the block's trailing dims are
-            # (tile_h, 1) — equal to / divisible into the array dims, as
-            # hardware Mosaic requires (a trailing (tile_h, 1) block over
-            # an (..., nh*tile_h, nc) array compiles only in interpret
-            # mode; caught by tools/hw_vhalo.py on the real chip).
-            sum_ref[0, 0] = jnp.sum(mask_cols(ssim - 1.0), axis=1,
-                                    keepdims=True)
-            return
-
-        n_valid = (
-            jnp.minimum(h - i * tile_h, tile_h).astype(jnp.float32)
-            * jnp.minimum(w - c * chunk_w, chunk_w).astype(jnp.float32)
-        )
-        if precise:
-            # Compensated reduction; lo-sums ride as extra partials for
-            # the host f64 finalize. (x-1) is masked, not x-1 of the
-            # mask: out-of-image cells must contribute 0, not -1.
-            hi_s, lo_s = _df_sum_2d(mask_cols(ssim - 1.0), mask_cols(ssim_lo))
-            hi_s, e = _two_sum(hi_s, n_valid)
-            sum_ref[0, 0, 0, 0, 0] = hi_s
-            sum_ref[0, 0, 0, 0, 1] = lo_s + e
-        elif components:
-            sum_ref[0, 0, 0, 0, 0] = jnp.sum(mask_cols(cs - 1.0)) + n_valid
-            sum_ref[0, 0, 0, 0, 1] = jnp.sum(mask_cols(ssim - 1.0)) + n_valid
-        else:
-            sum_ref[0, 0, 0, 0, 0] = jnp.sum(mask_cols(ssim - 1.0)) + n_valid
-
-    def row_index(di):
-        if di < 0:
-            return lambda i: jnp.maximum(i - 1, 0)
-        if di > 0:
-            return lambda i: jnp.minimum(i + 1, nh - 1)
-        return lambda i: i
-
-    def mspec(di):
-        row = row_index(di)
-        return pl.BlockSpec(
-            (1, tile_h, chunk_w),
-            lambda bi, i, c: (bi, row(i), c),
-            memory_space=pltpu.VMEM,
-        )
-
-    def sspec(di, side):
-        row = row_index(di)
-        if side < 0:
-            lane = lambda c: jnp.maximum(c * lw - 1, 0)
-        else:
-            lane = lambda c: jnp.minimum((c + 1) * lw, nlb - 1)
-        return pl.BlockSpec(
-            (1, tile_h, 128),
-            lambda bi, i, c: (bi, row(i), lane(c)),
-            memory_space=pltpu.VMEM,
-        )
-
-    specs = (
-        [mspec(d) for d in (-1, 0, 1)]
-        + [sspec(d, -1) for d in (-1, 0, 1)]
-        + [sspec(d, 1) for d in (-1, 0, 1)]
-    )
-    vm_spec = pl.BlockSpec((1, tile_h, band), lambda bi, i, c: (i, 0, 0),
-                           memory_space=pltpu.VMEM)
-    hm_spec = pl.BlockSpec((128 + 2 * r, 128), lambda bi, i, c: (0, 0),
-                           memory_space=pltpu.VMEM)
-    out_shapes = []
-    out_specs = []
-    if with_map:
-        out_shapes.append(
-            jax.ShapeDtypeStruct((batch, nh * tile_h, nc * chunk_w), jnp.float32)
-        )
-        out_specs.append(
-            pl.BlockSpec((1, tile_h, chunk_w), lambda bi, i, c: (bi, i, c),
-                         memory_space=pltpu.VMEM)
-        )
-    if rowsum:
-        n_sums = None
-        out_shapes.append(
-            jax.ShapeDtypeStruct((batch, nc, nh * tile_h, 1), jnp.float32)
-        )
-        out_specs.append(
-            pl.BlockSpec((1, 1, tile_h, 1), lambda bi, i, c: (bi, c, i, 0),
-                         memory_space=pltpu.VMEM)
-        )
-    else:
-        n_sums = 2 if (precise or components) else 1
-        out_shapes.append(
-            jax.ShapeDtypeStruct((batch, nh, nc, 1, n_sums), jnp.float32)
-        )
-        out_specs.append(
-            pl.BlockSpec((1, 1, 1, 1, n_sums),
-                         lambda bi, i, c: (bi, i, c, 0, 0),
-                         memory_space=pltpu.SMEM)
-        )
-
-    extra_ops = ()
-    extra_specs = []
-    if vm_intmu:
-        extra_ops = (vm3,)
-        extra_specs.append(
-            pl.BlockSpec((3, 1, tile_h, band), lambda bi, i, c: (0, i, 0, 0),
-                         memory_space=pltpu.VMEM)
-        )
-    outs = pl.pallas_call(
-        kernel,
-        grid=(batch, nh, nc),
-        in_specs=[vm_spec, hm_spec] + specs + specs + extra_specs,
-        out_shape=tuple(out_shapes),
-        out_specs=tuple(out_specs),
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("parallel", "parallel", "parallel"),
-        ),
-        interpret=interpret,
-    )(vmats, hmat, *([a] * 9), *([b] * 9), *extra_ops)
-
-    if with_map:
-        map_padded, tile_sums = outs
-        ssim_map = map_padded[:, :h, :w]
-    else:
-        (tile_sums,) = outs
-        ssim_map = None
-    if rowsum:
-        rows = tile_sums[..., 0].sum(axis=1)[:, :h]
-        return rows + jnp.float32(w), None
-    return tile_sums.reshape(batch, nh * nc * n_sums), ssim_map
+def _symmetric_sum(term, taps, r):
+    """sum_k taps[k] * term(k) over the 2r+1 taps, for 4-tuples of
+    arrays: symmetric pairs first, smallest taps first (the order of
+    ops/ssim_xla.blur_separable)."""
+    acc = None
+    for k in range(r):
+        t = float(taps[k])
+        pair = tuple(t * (x + y) for x, y in zip(term(k), term(2 * r - k)))
+        acc = pair if acc is None else tuple(p + q for p, q in zip(acc, pair))
+    t = float(taps[r])
+    return tuple(p + t * q for p, q in zip(acc, term(r)))
 
 
 @functools.partial(
     jax.jit,
     static_argnames=(
-        "with_map", "radius", "sigma", "data_range", "interpret",
-        "max_tile_h", "max_tile_w", "precise", "allow_float", "relaxed",
-        "k1", "k2", "rowsum",
+        "with_map", "data_range", "radius", "sigma", "k1", "k2",
+        "row_offset", "out_h", "interpret",
     ),
 )
 def ssim_parts_pallas(
@@ -1703,758 +122,65 @@ def ssim_parts_pallas(
     b: jnp.ndarray,
     *,
     with_map: bool = False,
+    data_range: float = 255.0,
     radius: int = RADIUS,
     sigma: float = SIGMA,
-    data_range: float = 255.0,
-    interpret: bool = False,
-    max_tile_h: Optional[int] = None,
-    max_tile_w: int = TILE_W,
-    precise: bool = False,
-    allow_float: bool = False,
-    relaxed: bool = False,
     k1: float = 0.01,
     k2: float = 0.03,
-    rowsum: bool = False,
-    vhalo=None,
-    vmask=None,
+    row_offset: int = 0,
+    out_h: Optional[int] = None,
+    interpret: bool = False,
 ) -> Tuple[jnp.ndarray, Optional[jnp.ndarray]]:
-    """Fused-kernel SSIM. a, b: (H, W) or (B, H, W), uint8 (or, with
-    allow_float=True, float32 in [0, data_range]).
+    """Fused SSIM of (..., H, W) pairs of one dtype (u8, u16 or float).
 
-    vhalo=(a_top, a_bot, b_top, b_bot), each (..., radius, W) with the
-    inputs' dtype, marks a/b as a row-window of a larger global image
-    whose 2*radius vertical neighbor rows are supplied separately — the
-    spatial-sharding case (parallel/spatial.py), where they arrive over
-    ICI via ppermute. The kernel splices them into its VMEM band, so the
-    caller never materializes a halo-concatenated copy of the images in
-    HBM (measured ~11% of the sharded score path). Outputs cover exactly
-    the local H rows, computed with true neighbor content. Restricted to
-    rowsum/with_map (what the sharded layers consume); images wider than
-    the fast path fall back to an internal halo concat with identical
-    output semantics.
-
-    vmask=(is_top, is_bot) (traced 0/1 scalars, requires vhalo): the
-    halo operands are RAW collective outputs and the kernel itself
-    substitutes clamp replicas of the local edge rows where a flag is
-    set — the reference border rule (src/ssim.cpp:560-582) without any
-    host-side replica construction. With vmask the sharded layer's
-    whole exchange is two stacked ppermutes; measured honestly
-    (carried-perturbation loops, tools/probe_spatial.py) the full
-    sharded path then runs at kernel parity. Without vmask, edge shards
-    must pass pre-built replica halos (the round-4 contract, still
-    honored for existing callers).
-
-    rowsum=True swaps the per-tile partials for per-ROW sums of SSIM:
-    returns ((..., H) f32 row sums, None). Built for score-only spatial
-    sharding (parallel/spatial.py), where each shard keeps only its
-    owned rows — the kernel then writes H*4 bytes to HBM instead of the
-    H*W*4-byte map it previously materialized just to be row-reduced.
-    Incompatible with with_map/precise (the sharded layers' standard
-    tier only); finalize with engine.finalize_mean(row_sums, H*W).
-
-    radius/sigma/k1/k2 generalize the window and stabilization constants
-    (extension). The kernel's halo geometry is built from the taps at
-    trace time, so any radius <= MAX_FUSED_RADIUS (16) rides the fused
-    kernels — unlike the reference, whose fast paths hardcode radius 5
-    (src/ssim.cpp:364-449) and fall to the generic loop otherwise.
-
-    max_tile_h=None (default) picks the tile height adaptively
-    (_pick_tile_h: large images keep the classic 32-row tiles; small
-    batched images get taller tiles, up to +45% throughput); pass an
-    int to pin it (the chunked wide-image path always pins 32 unless
-    told otherwise — its VMEM budget is managed by _pick_chunk_w).
-
-    Returns (partials, map or None): partials is (..., K) f32 per-tile
-    sums of per-pixel SSIM over valid pixels (finalize with
-    engine.finalize_mean; K doubles in precise mode, where each tile also
-    emits its df32 compensation sum); map is (..., H, W) f32.
-
-    precise=True is the TPU-native analogue of the reference's
-    RMGR_SSIM_USE_DOUBLE build (src/ssim_internal.h:26-37): the SSIM
-    formula and reductions run in compensated double-float arithmetic
-    (see _ssim_from_blurs_df32). Measured vs the f64 oracle it beats the
-    reference's double-build error tier (README.md:92) by ~2 orders of
-    magnitude at roughly half the f32-mode throughput.
-
-    relaxed=True opts into the fast loose-accuracy tier ("mxu3x"): wide
-    images (w >= MXU_MIN_W) run the heavy horizontal blurs as 3-pass
-    bf16-split MXU matmuls instead of the f32-equivalent 6-pass HIGHEST
-    dots — measured ~16-18 Gpix/s on v5e (vs ~13-14 standard), with
-    global error typically <=2e-7 but bounded only by the 2-term bf16
-    split (~2^-17 relative; up to ~3.8e-6 observed on impulse-noise
-    content — outside the reference f32 build's 1.49e-6 tier, hence
-    opt-in; see _lane_mode_for). No-op for small widths, where the
-    roll/concat modes are already optimal. Incompatible with
-    precise=True (which guarantees bit-exact f32 blurs).
-
-    allow_float=True opts into the float32 input path (an extension
-    beyond the reference's u8-only contract, used by the engine so float
-    images get the fused kernel's ~1.7x throughput over the XLA path): the
-    kernel sanitizes float bands (NaN input pixels become 0; values clip
-    to ±131072, which only affects garbage — real pixels live in
-    [0, data_range]). It stays opt-in so the default API surface keeps
-    the reference's u8 contract. Wide float images ride the same
-    zero-copy chunked path as u8 (the float fast path covers one lane
-    block; beyond it the chunked grid sanitizes per chunk).
+    Returns (partials (..., K) f32 — one sum per kernel program, to be
+    reduced by the caller — and the f32 map (..., out_h, W) or None).
+    row_offset/out_h: compute only the out_h rows starting at row
+    row_offset (default: all H rows); the rows outside are read as halo.
+    The spatial-sharding layer passes a band with r neighbour rows above
+    and below. interpret=True runs the Pallas interpreter; only tests on
+    a machine without a GPU ask for it.
     """
-    if not 1 <= radius <= MAX_FUSED_RADIUS:
+    if a.shape != b.shape or a.dtype != b.dtype or not (
+        a.dtype in (jnp.uint8, jnp.uint16) or jnp.issubdtype(a.dtype, jnp.floating)
+    ):
         raise ValueError(
-            f"the fused kernel serves radius 1..{MAX_FUSED_RADIUS} (halo "
-            f"geometry is built from taps at trace time); got {radius} — "
-            f"use the XLA path for larger windows"
+            "the fused kernel takes two same-shape arrays of one dtype out "
+            f"of uint8, uint16 or float; got {a.shape} {a.dtype} and "
+            f"{b.shape} {b.dtype}"
         )
-    if relaxed and precise:
-        raise ValueError(
-            "relaxed (loose bf16-split blurs) contradicts precise "
-            "(compensated double-float) — pick one accuracy tier"
-        )
-    if rowsum and (with_map or precise):
-        raise ValueError(
-            "rowsum emits per-row sums INSTEAD of the map/partials — "
-            "incompatible with with_map and precise"
-        )
-    if data_range < 1e-6:
-        # c1*c2 = 9e-8 * data_range^4 must stay a normal f32 (TPUs flush
-        # subnormals): below this the formula itself degenerates and the
-        # ragged-tile garbage-rows-equal-1.0 identity breaks.
-        raise ValueError(f"data_range {data_range} too small (must be >= 1e-6)")
-    float_ok = (
-        allow_float and a.dtype == jnp.float32 and b.dtype == jnp.float32
+    lead = a.shape[:-2]
+    h, w = a.shape[-2], a.shape[-1]
+    a3 = a.reshape((-1, h, w))
+    b3 = b.reshape((-1, h, w))
+    bsz = a3.shape[0]
+    out_h = h - row_offset if out_h is None else out_h
+    nh = -(-out_h // TILE_H)
+    nw = -(-w // TILE_W)
+    kern = functools.partial(
+        _kernel, h=h, w=w, row_offset=row_offset, out_h=out_h,
+        radius=int(radius),
+        taps=gaussian_taps(np.float32, int(radius), sigma),
+        c1=float(np.float32((k1 * data_range) ** 2)),
+        c2=float(np.float32((k2 * data_range) ** 2)),
+        with_map=with_map,
     )
-    if not float_ok and (a.dtype != jnp.uint8 or b.dtype != jnp.uint8):
-        # Wider integers would silently wrap modulo 256 in the u8 cast
-        # below; floats would be truncated. Refuse both rather than return
-        # a wrong score.
-        raise ValueError(
-            f"the fused kernel is specialized to uint8 inputs (the "
-            f"reference's only supported depth, README.md:107-111); got "
-            f"{a.dtype}/{b.dtype} — use allow_float=True for float32 "
-            f"images or the XLA path for wider integer dtypes"
-        )
-    if vmask is not None and vhalo is None:
-        raise ValueError("vmask requires vhalo (it flags the halo operands)")
-    if vhalo is not None:
-        if not (rowsum or with_map):
-            raise ValueError(
-                "vhalo serves the sharded layers' rowsum/map modes only "
-                "(per-tile partials over a halo'd window are not exposed)"
-            )
-        vhalo = tuple(jnp.asarray(x) for x in vhalo)
-        if len(vhalo) != 4 or any(
-            x.shape != a.shape[:-2] + (radius, a.shape[-1])
-            or x.dtype != a.dtype
-            for x in vhalo
-        ):
-            raise ValueError(
-                f"vhalo must be 4 arrays (a_top, a_bot, b_top, b_bot) of "
-                f"shape {a.shape[:-2] + (radius, a.shape[-1])} and dtype "
-                f"{a.dtype}; got "
-                f"{[(x.shape, str(x.dtype)) for x in vhalo]}"
-            )
-    squeeze = a.ndim == 2
-    if squeeze:
-        a = a[None]
-        b = b[None]
-        if vhalo is not None:
-            vhalo = tuple(x[None] for x in vhalo)
-    batch, h, w = a.shape
-    if not float_ok:
-        a = a.astype(jnp.uint8)
-        b = b.astype(jnp.uint8)
-
-    taps = gaussian_taps(np.float32, radius, sigma)
-    c1 = float((k1 * data_range) ** 2)
-    c2 = float((k2 * data_range) ** 2)
-    if c1 * c2 < 9e-32:
-        # Same degeneracy as the data_range guard above, reachable via
-        # tiny custom k1/k2: c1*c2 must stay a normal f32 (TPUs flush
-        # subnormals) for the ragged-tile garbage-rows-equal-1.0 identity.
-        raise ValueError(
-            f"k1/k2 too small for data_range {data_range}: c1*c2 = "
-            f"{c1 * c2:g} degenerates in f32 (needs >= 9e-32)"
-        )
-
-    # Images up to one tile wide take the zero-copy fast path (raw inputs,
-    # per-tile clamp-folded band matrices); wider images use the padded
-    # chunked path (four BlockSpecs per image: row x lane neighbors).
-    clip_bound = max(131072.0, 4.0 * float(data_range))
-    fast_ok = _round_up(w + 2 * radius, 128) <= max_tile_w + COL_OVERLAP
-    # Float input blocks are 4x u8's: widths past _FLOAT_FAST_PATH_BUDGET
-    # exceed the default 16 MiB scoped-VMEM window (measured 18.79M at
-    # 32 x 4212) — the call raises the window for them instead of
-    # falling back to the chunked path (measured on v5e at f32 4K b2:
-    # fast path 14.0 vs chunked 7.7 Gpix/s).
-    if vhalo is not None and not fast_ok:
-        # Wide images: the chunked grid has no halo-operand mode, so fall
-        # back to the concatenated layout with the same output contract
-        # (compute the extended window, keep the local rows).
-        a_top, a_bot, b_top, b_bot = vhalo
-        if vmask is not None:
-            # Raw collective halos: substitute the edge replicas here
-            # (host-side, like the pre-vmask contract — this fallback
-            # concatenates anyway, so there is nothing to win in-kernel).
-            it_f, ib_f = (jnp.asarray(x, jnp.float32) for x in vmask)
-            hs = (radius,)
-
-            def repl(x, row):
-                return jnp.broadcast_to(
-                    x[..., row : row + 1, :], x.shape[:-2] + hs + x.shape[-1:]
-                )
-
-            a_top = jnp.where(it_f > 0, repl(a, 0), a_top)
-            b_top = jnp.where(it_f > 0, repl(b, 0), b_top)
-            a_bot = jnp.where(ib_f > 0, repl(a, h - 1), a_bot)
-            b_bot = jnp.where(ib_f > 0, repl(b, h - 1), b_bot)
-        a = jnp.concatenate([a_top, a, a_bot], axis=-2)
-        b = jnp.concatenate([b_top, b, b_bot], axis=-2)
-        if rowsum:
-            rows, _ = _chunked_overlap_call(
-                a, b, h + 2 * radius, w, taps, c1, c2, False, interpret,
-                TILE_H if max_tile_h is None else max_tile_h,
-                clip_bound=clip_bound, relaxed=relaxed, rowsum=True,
-            )
-            rows = rows[:, radius : radius + h]
-            if squeeze:
-                rows = rows[0]
-            return rows, None
-        _, ssim_map = _chunked_overlap_call(
-            a, b, h + 2 * radius, w, taps, c1, c2, True, interpret,
-            TILE_H if max_tile_h is None else max_tile_h,
-            clip_bound=clip_bound, relaxed=relaxed,
-        )
-        ssim_map = ssim_map[:, radius : radius + h]
-        partials = jnp.sum(ssim_map, axis=(-2, -1), keepdims=False)[..., None]
-        if squeeze:
-            return partials[0], ssim_map[0]
-        return partials, ssim_map
-    if fast_ok:
-        tile_h = max_tile_h if max_tile_h is not None else _pick_tile_h(
-            h, w, precise=precise, float_input=float_ok, radius=radius
-        )
-        partials, ssim_map = _nopad_overlap_call(
-            a, b, h, w, taps, c1, c2, with_map, interpret, tile_h,
-            precise=precise, clip_bound=clip_bound, relaxed=relaxed,
-            rowsum=rowsum, vhalo=vhalo, vmask=vmask,
-        )
-    else:
-        partials, ssim_map = _chunked_overlap_call(
-            a, b, h, w, taps, c1, c2, with_map, interpret,
-            TILE_H if max_tile_h is None else max_tile_h,
-            precise=precise, clip_bound=clip_bound, relaxed=relaxed,
-            rowsum=rowsum,
-        )
-    if squeeze:
-        partials = partials[0]
-        ssim_map = None if ssim_map is None else ssim_map[0]
+    out_shape = [jax.ShapeDtypeStruct((bsz, nh, nw), jnp.float32)]
+    if with_map:
+        out_shape.append(jax.ShapeDtypeStruct((bsz, out_h, w), jnp.float32))
+    anyspec = pl.BlockSpec(memory_space=pl.ANY)
+    outs = pl.pallas_call(
+        kern,
+        out_shape=out_shape,
+        grid=(bsz, nh, nw),
+        in_specs=[anyspec, anyspec],
+        out_specs=[anyspec] * len(out_shape),
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=NUM_WARPS,
+                                             num_stages=1),
+        interpret=interpret,
+        name="ssim_fused_fwd",
+    )(a3, b3)
+    partials = outs[0].reshape(lead + (nh * nw,))
+    ssim_map = outs[1].reshape(lead + (out_h, w)) if with_map else None
     return partials, ssim_map
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=("data_range", "interpret", "max_tile_h", "max_tile_w",
-                     "relaxed", "radius", "sigma", "k1", "k2"),
-)
-def ssim_components_pallas(
-    a: jnp.ndarray,
-    b: jnp.ndarray,
-    *,
-    data_range: float = 255.0,
-    interpret: bool = False,
-    max_tile_h: Optional[int] = None,
-    max_tile_w: int = TILE_W,
-    relaxed: bool = False,
-    radius: int = RADIUS,
-    sigma: float = SIGMA,
-    k1: float = 0.01,
-    k2: float = 0.03,
-) -> jnp.ndarray:
-    """Fused-kernel MS-SSIM components: per-tile sums of the cs factor and
-    of full SSIM (= l*cs). a, b: (H, W) or (B, H, W), uint8 OR float32 in
-    [0, data_range] — the float entry exists for the downsampled scales
-    of the MS-SSIM pyramid (models/msssim.py), whose 2x2-mean values are
-    exact f32s but no longer integers.
-
-    Returns (..., K, 2) f32: [:, 0] cs-sums, [:, 1] ssim-sums per tile;
-    means follow by summing over K and dividing by H*W. This is the
-    components-mode kernel behind the fast MS-SSIM path on TPU (~1.7x
-    the XLA formulation per scale; on the round-1/2 stack the XLA route
-    additionally cost ~160 s/shape to compile, since fixed upstream).
-    relaxed: the loose bf16-split blur tier (see ssim_parts_pallas).
-    """
-    if a.dtype == jnp.uint8 and b.dtype == jnp.uint8:
-        pass
-    elif a.dtype == jnp.float32 and b.dtype == jnp.float32:
-        pass
-    else:
-        raise ValueError(
-            f"components kernel takes uint8 or float32 pairs, got "
-            f"{a.dtype}/{b.dtype}"
-        )
-    squeeze = a.ndim == 2
-    if squeeze:
-        a = a[None]
-        b = b[None]
-    batch, h, w = a.shape
-
-    # radius/sigma/k1/k2: the custom-window extension (trace-time taps and
-    # constants; radius <= MAX_FUSED_RADIUS like ssim_parts_pallas).
-    if not 1 <= radius <= MAX_FUSED_RADIUS:
-        raise ValueError(
-            f"the fused kernel serves radius 1..{MAX_FUSED_RADIUS}; got "
-            f"{radius} — use the XLA path for larger windows"
-        )
-    taps = gaussian_taps(np.float32, radius, sigma)
-    c1 = float((k1 * data_range) ** 2)
-    c2 = float((k2 * data_range) ** 2)
-    if c1 * c2 < 9e-32:
-        # Same degeneracy floor as ssim_parts_pallas: the ragged-tile
-        # garbage-rows-equal-1.0 identity needs c1*c2 to stay a normal f32.
-        raise ValueError(
-            f"k1/k2 too small for data_range {data_range}: c1*c2 = "
-            f"{c1 * c2:g} degenerates in f32 (needs >= 9e-32)"
-        )
-
-    clip_bound = max(131072.0, 4.0 * float(data_range))
-    is_float = a.dtype == jnp.float32
-    fast_ok = _round_up(w + 2 * radius, 128) <= max_tile_w + COL_OVERLAP
-    if is_float and 32 * (w + 2 * radius) > _FLOAT_FAST_PATH_BUDGET:
-        fast_ok = False  # float blocks are 4x u8's (see ssim_parts_pallas)
-    if fast_ok:
-        tile_h = max_tile_h if max_tile_h is not None else _pick_tile_h(
-            h, w, float_input=is_float, radius=radius
-        )
-        partials, _ = _nopad_overlap_call(
-            a, b, h, w, taps, c1, c2, False, interpret, tile_h,
-            components=True, clip_bound=clip_bound, relaxed=relaxed,
-        )
-    else:
-        partials, _ = _chunked_overlap_call(
-            a, b, h, w, taps, c1, c2, False, interpret,
-            TILE_H if max_tile_h is None else max_tile_h,
-            components=True, clip_bound=clip_bound, relaxed=relaxed,
-        )
-    partials = partials.reshape(batch, -1, 2)
-    if squeeze:
-        partials = partials[0]
-    return partials
-
-
-def pooled_components_ok(shape, dtype, radius: int = RADIUS) -> bool:
-    """Whether ssim_components_pooled_pallas accepts this geometry: u8 or
-    f32 pairs on the zero-copy fast path (the pooled outputs ride the
-    same tile grid; the chunked wide path has no pooled mode). f32 since
-    round 5 — the pyramid's scale-1..3 pools fuse too — within the float
-    fast-path VMEM budget."""
-    h, w = shape[-2], shape[-1]
-    if dtype not in (jnp.uint8, jnp.float32):
-        return False
-    if dtype == jnp.float32 and 32 * (w + 2 * radius) > _FLOAT_FAST_PATH_BUDGET:
-        return False
-    return (
-        h >= 2
-        and w >= 2
-        and 1 <= radius <= MAX_FUSED_RADIUS
-        and _round_up(w + 2 * radius, 128) <= TILE_W + COL_OVERLAP
-    )
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=("data_range", "interpret", "max_tile_h", "relaxed",
-                     "radius", "sigma", "k1", "k2"),
-)
-def ssim_components_pooled_pallas(
-    a: jnp.ndarray,
-    b: jnp.ndarray,
-    *,
-    data_range: float = 255.0,
-    interpret: bool = False,
-    max_tile_h: Optional[int] = None,
-    relaxed: bool = False,
-    radius: int = RADIUS,
-    sigma: float = SIGMA,
-    k1: float = 0.01,
-    k2: float = 0.03,
-) -> Tuple[jnp.ndarray, jnp.ndarray, jnp.ndarray]:
-    """ssim_components_pallas fused with the MS-SSIM pyramid's 2x2-mean
-    downsample of the inputs: one kernel launch returns the per-tile
-    [cs, ssim] sums AND the exact pooled next-scale images, removing the
-    separate reduce_window pass (and its HBM round trip) between scale 0
-    and scale 1 of models/msssim.py. u8 fast-path geometries only —
-    gate callers on pooled_components_ok.
-
-    Returns (parts (..., K, 2), pooled_a, pooled_b) with the pooled
-    images f32 (..., H//2, W//2). For u8 inputs the pooled images are
-    bit-identical to _downsample2 (exact f32 arithmetic on u8 data; see
-    the pool_out kernel note). f32 inputs (round 5: scale-1..3 pools of
-    the pyramid fuse too) pool via HIGHEST dots — f32-equivalent,
-    ~1 ulp of _downsample2, not bitwise.
-    """
-    if a.dtype != b.dtype or a.dtype not in (jnp.uint8, jnp.float32):
-        raise ValueError(
-            f"pooled components kernel takes uint8 or float32 pairs, got "
-            f"{a.dtype}/{b.dtype}"
-        )
-    squeeze = a.ndim == 2
-    if squeeze:
-        a = a[None]
-        b = b[None]
-    batch, h, w = a.shape
-    if not pooled_components_ok(a.shape, a.dtype, radius):
-        raise ValueError(
-            f"geometry {h}x{w} not eligible for the pooled components "
-            f"kernel (u8 fast path only)"
-        )
-    taps = gaussian_taps(np.float32, radius, sigma)
-    c1 = float((k1 * data_range) ** 2)
-    c2 = float((k2 * data_range) ** 2)
-    if c1 * c2 < 9e-32:
-        raise ValueError(
-            f"k1/k2 too small for data_range {data_range}: c1*c2 = "
-            f"{c1 * c2:g} degenerates in f32 (needs >= 9e-32)"
-        )
-    tile_h = max_tile_h if max_tile_h is not None else _pick_tile_h(
-        h, w, float_input=a.dtype == jnp.float32, radius=radius
-    )
-    partials, (pool_a, pool_b) = _nopad_overlap_call(
-        a, b, h, w, taps, c1, c2, False, interpret, tile_h,
-        components=True, clip_bound=max(131072.0, 4.0 * float(data_range)),
-        relaxed=relaxed, pool_out=True,
-    )
-    partials = partials.reshape(batch, -1, 2)
-    if squeeze:
-        partials = partials[0]
-        pool_a = pool_a[0]
-        pool_b = pool_b[0]
-    return partials, pool_a, pool_b
-
-
-#: Widest image the packed-batch path packs. Measured on v5e (packed vs
-#: adaptive-tile unpacked, Gpix/s): 32^2 5.16/1.28, 64^2 5.48/3.12 —
-#: unambiguous wins for small NON-128-multiple widths, whose unpacked
-#: tiles waste most of their vreg lanes. At 224^2 packing REGRESSES
-#: (6.79/8.76 u8, 5.66/8.60 f32 — the pack transpose is pure overhead
-#: there), so the cutoff sits below the ubiquitous 224 ML-crop size.
-#: 128-MULTIPLE widths never pack: the roll lane mode already removes
-#: their vreg-boundary waste unpacked, and beats or ties the packed
-#: path (128^2 7.24 vs 7.27, 256^2 9.56 vs 7.46, 512^2 10.36 vs 9.23).
-PACK_MAX_W = 192
-
-
-def pack_preferred(w: int, batch: int, itemsize: int = 1,
-                   radius: int = RADIUS) -> bool:
-    """Whether the (round-5 gutterless) packed path is measured faster
-    for w-wide batches. Every packable width through PACK_MAX_W wins,
-    INCLUDING 128-multiples (which the round-4 gate excluded: the old
-    gutter layout lost to the unpacked roll mode there, but the
-    gutterless per-chunk-matrix kernel measures 9.0 vs 8.2 Gpix/s at
-    128^2 b1024 on v5e). 224^2/256^2 still favor the standard path
-    (9.0/9.1 vs 8.6/9.0 — tools/probe_bpack2.py), so the crossover
-    stays at PACK_MAX_W. Independent of _LANE_MODE, so the
-    benchmarking override changes only the hpass strategy, never the
-    auto-routing packing decision."""
-    if bpack_count(w, batch, itemsize) < 2:
-        return False
-    return w <= PACK_MAX_W
-
-
-def pack_count(w: int, batch: int, itemsize: int = 1,
-               radius: int = RADIUS) -> int:
-    """How many w-wide images the packed path lays side by side. Float
-    inputs (itemsize 4) pack into the tighter float VMEM budget's row
-    width (~3062 lanes at 32-row tiles) instead of the full 4214."""
-    pitch = w + 2 * radius
-    if itemsize > 1:
-        limit = (_FLOAT_FAST_PATH_BUDGET // 32 - 2 * radius) // pitch
-    else:
-        # Packed rows stay at the round-3-measured 4K width (the packing
-        # crossovers in PACK_MAX_W's note were swept there); the round-4
-        # TILE_W=16384 widening applies to plain wide images, not to how
-        # many thumbnails one row should carry.
-        limit = (4096 + COL_OVERLAP - 2 * radius) // pitch
-    return max(1, min(batch, limit))
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=("data_range", "interpret", "max_tile_h", "allow_float",
-                     "relaxed", "radius", "sigma", "k1", "k2"),
-)
-def ssim_parts_pallas_packed(
-    a: jnp.ndarray,
-    b: jnp.ndarray,
-    *,
-    data_range: float = 255.0,
-    interpret: bool = False,
-    max_tile_h: Optional[int] = None,
-    allow_float: bool = False,
-    relaxed: bool = False,
-    radius: int = RADIUS,
-    sigma: float = SIGMA,
-    k1: float = 0.01,
-    k2: float = 0.03,
-) -> jnp.ndarray:
-    """Lane-packed batch SSIM for SMALL uint8 images: per-image partials
-    of shape (B, 2) — [:, 0] the (ssim - 1) sum, [:, 1] the exact pixel
-    count — so engine.finalize_mean(partials, H*W) yields the per-image
-    means with the same f64-host-finalize contract as the standard path
-    (the count rides as its own f32 partial; folding it into the residual
-    sum in f32 would cost the residual its fine ulp).
-
-    A (B, H, W) batch of thumbnails starves the standard grid: a 64-wide
-    image uses half of the 128-lane tile and its per-tile fixed costs
-    amortize over ~4k pixels (measured 2.6-3.1 Gpix/s at 64x64 vs the
-    10.7 Gpix/s the same kernel sustains on a 64-row full-width strip).
-    This path packs P images side by side along the lane dimension, each
-    slot carrying its own RADIUS-wide edge-replica gutters so the 11-tap
-    horizontal window never crosses an image boundary (the same isolation
-    the reference gets from per-tile margin fills, src/ssim.cpp:540-555).
-    The kernel runs its normal fused pipeline over the packed rows and
-    emits per-lane column sums of (ssim - 1) (colsum mode); slot sums are
-    segment-reduced outside. Batch remainders are padded with identical
-    zero pairs whose slots are simply dropped. u8 (or, with
-    allow_float=True, float32 — the sanitized float path with PER-COLUMN
-    NaN poisoning, so a NaN pixel in one image never poisons its packed
-    neighbors) / f32-precision / no-map only — other modes use the
-    standard path.
-    """
-    float_ok = (
-        allow_float and a.dtype == jnp.float32 and b.dtype == jnp.float32
-    )
-    if not float_ok and (a.dtype != jnp.uint8 or b.dtype != jnp.uint8):
-        raise ValueError(
-            "packed path takes uint8 (or float32 with allow_float=True); "
-            "use ssim_parts_pallas"
-        )
-    if a.ndim != 3:
-        raise ValueError(f"packed path needs a (B, H, W) batch, got {a.shape}")
-    if a.shape[-2] * a.shape[-1] >= 1 << 24:
-        # The per-image pixel count rides as an f32 partial; f32 is exact
-        # only below 2^24. The auto route gates on this (routing.py), but
-        # the invariant belongs to the function that depends on it.
-        raise ValueError(
-            f"packed path needs h*w < 2^24 for an exact f32 count, got "
-            f"{a.shape[-2]}x{a.shape[-1]}"
-        )
-    if data_range < 1e-6:
-        # Same guard as ssim_parts_pallas: below this c1*c2 denormal-
-        # flushes, breaking the formula AND the garbage-rows==1.0 colsum
-        # identity.
-        raise ValueError(f"data_range {data_range} too small (must be >= 1e-6)")
-    batch, h, w = a.shape
-    if not 1 <= radius <= MAX_FUSED_RADIUS:
-        raise ValueError(
-            f"the packed path serves radius 1..{MAX_FUSED_RADIUS}; got "
-            f"{radius}"
-        )
-    r = radius
-    pitch = w + 2 * r
-    p = pack_count(w, batch, itemsize=4 if float_ok else 1, radius=r)
-    bp = -(-batch // p)
-    pad_n = bp * p - batch
-
-    def pack(x):
-        x = jnp.pad(x, ((0, 0), (0, 0), (r, r)), mode="edge")
-        if pad_n:
-            x = jnp.pad(x, ((0, pad_n), (0, 0), (0, 0)))
-        return (
-            x.reshape(bp, p, h, pitch)
-            .transpose(0, 2, 1, 3)
-            .reshape(bp, h, p * pitch)
-        )
-
-    # radius/sigma/k1/k2: the custom-window extension. The radius-wide
-    # gutters isolate the window for ANY tap values (the window reaches at
-    # most r past an image edge, landing in that image's own replica
-    # gutter), and the padding-slot identity below holds for any c1/c2.
-    taps = gaussian_taps(np.float32, r, sigma)
-    c1 = float((k1 * data_range) ** 2)
-    c2 = float((k2 * data_range) ** 2)
-    if c1 * c2 < 9e-32:
-        # Same degeneracy floor as ssim_parts_pallas (c1*c2 must stay a
-        # normal f32).
-        raise ValueError(
-            f"k1/k2 too small for data_range {data_range}: c1*c2 = "
-            f"{c1 * c2:g} degenerates in f32 (needs >= 9e-32)"
-        )
-    clip_bound = max(131072.0, 4.0 * float(data_range))
-    tile_h = max_tile_h if max_tile_h is not None else _pick_tile_h(
-        h, p * pitch, float_input=float_ok
-    )
-    # relaxed applies to the PACKED row width (>= MXU_MIN_W for every
-    # packable w), not the per-image width; the padding-slot identity
-    # survives any blur tier (SSIM(x, x) == 1 bitwise: numerator and
-    # denominator are the same computation when a == b).
-    colsums, _ = _nopad_overlap_call(
-        pack(a), pack(b), h, p * pitch, taps, c1, c2,
-        False, interpret, tile_h, colsum=True, clip_bound=clip_bound,
-        relaxed=relaxed,
-    )
-    per_slot = (
-        colsums.reshape(bp, p, pitch)[:, :, r : r + w].sum(axis=-1).reshape(-1)
-    )
-    counts = jnp.full((batch, 1), np.float32(h * w), jnp.float32)
-    return jnp.concatenate([per_slot[:batch, None], counts], axis=1)
-
-
-#: Lane budget of one gutterless packed row (round-3 measured 4K-lane
-#: sweet spot for packed rows; re-swept for the gutterless layout —
-#: tools/probe_bpack.py).
-BPACK_LANES = 4096
-
-
-def bpack_count(w: int, batch: int, itemsize: int = 1) -> int:
-    """How many w-wide images the GUTTERLESS packed path lays side by
-    side: the row budget divided by the exact image width (no pitch
-    overhead — per-image borders live in the chunk matrices, not in
-    replica gutter lanes). Float inputs use the tighter float VMEM
-    budget, as pack_count does.
-
-    The row is kept on the 128-lane grid when possible: Mosaic's compile
-    helper crashes (silent subprocess exit, no diagnostic) on packed
-    rows with a PARTIAL last chunk once the unrolled chunk count grows
-    — measured on v5e: P=4032 (31.5 chunks) and P=4000 (31.25) crash,
-    while P=4096 (32 full), P=2016 (15.75) and smaller compile fine.
-    So: the largest p <= cap with p*w on the 128 grid; if no such p
-    exists (odd widths), cap the row at 16 chunks, which is inside the
-    measured-safe region."""
-    budget = (_FLOAT_FAST_PATH_BUDGET // 32) if itemsize > 1 else BPACK_LANES
-    cap = max(1, min(batch, budget // w))
-    for p in range(cap, 0, -1):
-        if (p * w) % 128 == 0:
-            return p
-    return max(1, min(cap, max(1, 2048 // w)))
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=("data_range", "interpret", "max_tile_h", "allow_float",
-                     "relaxed", "precise", "radius", "sigma", "k1", "k2"),
-)
-def ssim_parts_pallas_bpacked(
-    a: jnp.ndarray,
-    b: jnp.ndarray,
-    *,
-    data_range: float = 255.0,
-    interpret: bool = False,
-    max_tile_h: Optional[int] = None,
-    allow_float: bool = False,
-    relaxed: bool = False,
-    precise: bool = False,
-    radius: int = RADIUS,
-    sigma: float = SIGMA,
-    k1: float = 0.01,
-    k2: float = 0.03,
-) -> jnp.ndarray:
-    """Gutterless lane-packed batch SSIM for small images (round 5).
-
-    Same contract as ssim_parts_pallas_packed — per-image (B, 2)
-    partials of [(ssim - 1) sum, exact pixel count] — but the packed
-    row carries NO per-image replica gutters and the input relayout is
-    a single power-of-two-granule transpose (no edge-pad HBM pass):
-    per-image clamp-to-edge borders (reference rule,
-    src/ssim.cpp:540-555) are folded into per-128-lane-chunk
-    block-diagonal tap matrices (packed_chunk_matrices), and ALL four
-    horizontal blurs run on the MXU at HIGHEST precision. Measured on
-    v5e this removes the round-4 packed path's two dominant overheads:
-    the 74-byte-granule pad+transpose relayout (~45%% of end-to-end
-    time at 64^2 b4096) and the 2r/(w+2r) gutter-lane waste.
-
-    relaxed=True switches the heavy squared-signal blurs to the 3-pass
-    bf16-split tier (mu blurs stay exact), the packed analogue of the
-    mxu3x mode.
-
-    precise=True (round 5, VERDICT r4 #4) packs the df32 tier: the
-    kernel's compensated formula emits per-lane compensated column sums
-    (hi + lo planes), the per-image lane segment sums reduce pairwise in
-    df32 on device, and the partials become (B, 3) [hi, lo, count] —
-    engine.finalize_mean f64-sums them unchanged. Unlike the unpacked
-    precise path (bit-exact VPU f32 blurs), the packed blurs run on the
-    MXU at HIGHEST precision (f32-equivalent, not bit-equal; measured
-    accuracy vs the f64 oracle recorded in docs/RESULTS.md — within the
-    precise tier's contract of beating the reference double build).
-    """
-    float_ok = (
-        allow_float and a.dtype == jnp.float32 and b.dtype == jnp.float32
-    )
-    if not float_ok and (a.dtype != jnp.uint8 or b.dtype != jnp.uint8):
-        raise ValueError(
-            "packed path takes uint8 (or float32 with allow_float=True); "
-            "use ssim_parts_pallas"
-        )
-    if a.ndim != 3:
-        raise ValueError(f"packed path needs a (B, H, W) batch, got {a.shape}")
-    if a.shape[-2] * a.shape[-1] >= 1 << 24:
-        raise ValueError(
-            f"packed path needs h*w < 2^24 for an exact f32 count, got "
-            f"{a.shape[-2]}x{a.shape[-1]}"
-        )
-    if data_range < 1e-6:
-        raise ValueError(f"data_range {data_range} too small (must be >= 1e-6)")
-    batch, h, w = a.shape
-    if not 1 <= radius <= MAX_FUSED_RADIUS:
-        raise ValueError(
-            f"the packed path serves radius 1..{MAX_FUSED_RADIUS}; got "
-            f"{radius}"
-        )
-    if precise and relaxed:
-        raise ValueError(
-            "relaxed (loose bf16-split blurs) contradicts precise "
-            "(compensated double-float) — pick one accuracy tier"
-        )
-    p = bpack_count(w, batch, itemsize=4 if float_ok else 1)
-    bp = -(-batch // p)
-    pad_n = bp * p - batch
-
-    def pack(x):
-        if pad_n:
-            x = jnp.pad(x, ((0, pad_n), (0, 0), (0, 0)))
-        return (
-            x.reshape(bp, p, h, w)
-            .transpose(0, 2, 1, 3)
-            .reshape(bp, h, p * w)
-        )
-
-    taps = gaussian_taps(np.float32, radius, sigma)
-    c1 = float((k1 * data_range) ** 2)
-    c2 = float((k2 * data_range) ** 2)
-    if c1 * c2 < 9e-32:
-        raise ValueError(
-            f"k1/k2 too small for data_range {data_range}: c1*c2 = "
-            f"{c1 * c2:g} degenerates in f32 (needs >= 9e-32)"
-        )
-    clip_bound = max(131072.0, 4.0 * float(data_range))
-    tile_h = max_tile_h if max_tile_h is not None else _pick_tile_h(
-        h, p * w, precise=precise, float_input=float_ok
-    )
-    colsums, _ = _nopad_overlap_call(
-        pack(a), pack(b), h, p * w, taps, c1, c2,
-        False, interpret, tile_h, colsum=True, clip_bound=clip_bound,
-        relaxed=relaxed, precise=precise, pchunk=w,
-    )
-    counts = jnp.full((batch, 1), np.float32(h * w), jnp.float32)
-    if precise:
-        # Per-image lane segment sums, compensated: pairwise df32 tree
-        # over the w lanes of each image slot.
-        hi = colsums[:, 0].reshape(bp, p, w)
-        lo = colsums[:, 1].reshape(bp, p, w)
-        n = w
-        m = 1 << (n - 1).bit_length()
-        if m != n:
-            hi = jnp.pad(hi, ((0, 0), (0, 0), (0, m - n)))
-            lo = jnp.pad(lo, ((0, 0), (0, 0), (0, m - n)))
-        x = (hi, lo)
-        while m > 1:
-            m //= 2
-            x = _df_add(
-                (x[0][..., :m], x[1][..., :m]), (x[0][..., m:], x[1][..., m:])
-            )
-        per_hi = x[0][..., 0].reshape(-1)[:batch]
-        per_lo = x[1][..., 0].reshape(-1)[:batch]
-        return jnp.concatenate(
-            [per_hi[:, None], per_lo[:, None], counts], axis=1
-        )
-    # Per-image segment sums are an exact reshape — no gutter slicing;
-    # batch-padding slots (identical zero pairs, SSIM == 1 bitwise) drop.
-    per_image = colsums.reshape(bp, p, w).sum(axis=-1).reshape(-1)[:batch]
-    return jnp.concatenate([per_image[:, None], counts], axis=1)

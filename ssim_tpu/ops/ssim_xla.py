@@ -1,26 +1,27 @@
-"""Pure-XLA SSIM path (jnp, fuses on the VPU; no Pallas).
+"""Pure-XLA SSIM path (jnp; no Pallas), for every platform.
 
-This is the TPU-native replacement for the reference's generic + SIMD
-kernel stack (multiply src/ssim.cpp:249-265, gaussian_blur :321-489,
-sum_tile :590-704): one traced function XLA fuses and tiles itself.
+The plain formulation of the reference's generic + SIMD kernel stack
+(multiply src/ssim.cpp:249-265, gaussian_blur :321-489, sum_tile
+:590-704): one traced function XLA fuses and tiles itself. It is the
+path on the CPU, the reference the fused GPU kernel (ops/ssim_pallas.py)
+is checked against, the gradient of every training call, and the f64
+tier (dtype=float64).
 
-Design notes (TPU-first, not a translation):
+Design notes:
 - The reference's scatter-style radius-5 blur (one source row scatter-added
   into 11 destination rows, src/ssim.cpp:451-462) is re-expressed as a
   gather-style *separable* pair of 1-D passes using static shifted slices —
-  each tap is an (8,128)-tiled VPU FMA over the whole array, and XLA fuses
-  the 11-tap chain. Symmetric taps are paired (add-then-scale) like the
+  each tap is an elementwise FMA over the whole array, and XLA fuses the
+  11-tap chain. Symmetric taps are paired (add-then-scale) like the
   reference's L/R symmetry factorization (src/ssim.cpp:366-449): 6 muls +
-  10 adds per pass.
+  10 adds per pass. There is no matrix product, so TF32 never applies.
 - Each of the five windowed signals (a, b, a*a, b*b, a*b) is blurred
-  separately: each multiply+row-pass fuses into its own right-sized
-  pipeline (a single stacked 5-signal blur measured 31-44% slower — the
-  stack's materialized intermediate between the passes is 5x larger).
+  separately, each multiply+row-pass its own fusion.
 - Per-pixel math is f32 (parity with the reference's default Float,
   src/ssim_internal.h:26-37). The global accumulation is hierarchical:
-  f32 row sums here (pairwise-safe), f64 finalize on the host in the
-  engine — matching the reference's double accumulation guarantee
-  (src/ssim.cpp:594) without TPU-emulated f64.
+  row sums here (pairwise-safe), f64 finalize on the host in the engine —
+  matching the reference's double accumulation guarantee
+  (src/ssim.cpp:594).
 """
 
 import functools
@@ -88,13 +89,9 @@ def ssim_from_padded(
     c1 = dtype((k1 * data_range) ** 2)
     c2 = dtype((k2 * data_range) ** 2)
 
-    # Five separate blurs, one per windowed signal. This used to be one
-    # stacked (5, ..., H, W) blur "so the compiler sees a single big
-    # fusion" — measured on v5e the OPPOSITE wins: the stack forces a
-    # 5x-sized materialized intermediate between the row and column
-    # passes, and per-signal blurs (each its own smaller fusion) run
-    # 1072 -> 1549 Mpix/s at 1080p b8 (+44%) and +12% at b1, bitwise
-    # identical (same adds in the same order per signal).
+    # Five separate blurs, one per windowed signal: a stacked blur would
+    # materialize a 5x-sized intermediate between the row and column
+    # passes.
     mu_a = blur_separable(ap, taps, radius)
     mu_b = blur_separable(bp, taps, radius)
     s_a2 = blur_separable(ap * ap, taps, radius)
@@ -112,7 +109,10 @@ def ssim_from_padded(
     den = (mu_a2 + mu_b2 + c1) * (sigma_a2 + sigma_b2 + c2)
     ssim_map = num / den
 
-    row_sums = jnp.sum(ssim_map.astype(jnp.float32), axis=-1)
+    # Row sums in the compute dtype, at least f32: the f64 tier keeps
+    # its precision through the reduction.
+    row_sums = jnp.sum(ssim_map, axis=-1,
+                       dtype=jnp.promote_types(dtype, jnp.float32))
     return row_sums, (ssim_map if with_map else None)
 
 

@@ -1,12 +1,12 @@
 """Batch data parallelism: image pairs sharded across the mesh.
 
-The TPU-native analogue of the reference's thread-pool dispatch
+The device analogue of the reference's thread-pool dispatch
 (src/ssim.cpp:1061, contract include/rmgr/ssim.h:451-466): work units
 (whole image pairs, instead of 256x64 tiles) are distributed to workers
-(chips, instead of threads), partial results stay worker-local (sharded
-outputs, instead of per-thread ThreadParams.value at src/ssim.cpp:916),
-and the global reduction is an XLA psum over ICI (instead of the serial
-loop at src/ssim.cpp:1098-1099).
+(devices, instead of threads), partial results stay worker-local
+(sharded outputs, instead of per-thread ThreadParams.value at
+src/ssim.cpp:916), and the global reduction is an XLA psum (instead of
+the serial loop at src/ssim.cpp:1098-1099).
 """
 
 import functools
@@ -16,39 +16,23 @@ import jax
 import jax.numpy as jnp
 from jax.sharding import Mesh, PartitionSpec as P
 
-from ..dispatch import Implementation, backend_platform, select_impl
+from ..dispatch import Implementation, select_impl
 
 
-def _parts_fn(impl, window=None):
-    """Resolve the per-shard compute path. Defaults to the fused Pallas
-    kernel on TPU and the XLA path elsewhere. window: optional dict of
-    radius/sigma/k1/k2 overrides (the custom-window extension; routing
-    keeps the fused kernel for any radius <= MAX_FUSED_RADIUS and sends
-    larger radii to the XLA path)."""
-    impl = select_impl(impl)
-    window = window or {}
-    if impl == Implementation.PALLAS:
-        from ..ops.routing import ssim_parts_auto
+def _parts_fn(impl, window):
+    """Resolve the per-shard compute path: the routed fused kernel for
+    Implementation.PALLAS (the GPU's default), the XLA path otherwise.
+    window: radius/sigma/k1/k2 of the custom-window extension."""
+    if select_impl(impl) == Implementation.PALLAS:
+        from ..ops.routing import ssim_parts_auto as parts
+    else:
+        from ..ops.ssim_xla import ssim_parts_xla as parts
 
-        interpret = backend_platform() != "tpu"
+    def run(a, b, with_map, data_range):
+        return parts(a, b, with_map=with_map, data_range=data_range,
+                     **window)
 
-        def parts(a, b, with_map, data_range):
-            # Shared dtype routing (ops.routing): u8/float/u16 ride the
-            # fused kernel, anything else XLA — never wrap modulo 256.
-            return ssim_parts_auto(
-                a, b, with_map=with_map, data_range=data_range,
-                interpret=interpret, **window,
-            )
-
-        return parts
-    from ..ops.ssim_xla import ssim_parts_xla
-
-    def parts(a, b, with_map, data_range):
-        return ssim_parts_xla(
-            a, b, with_map=with_map, data_range=data_range, **window
-        )
-
-    return parts
+    return run
 
 
 def ssim_batch_sharded(
@@ -86,7 +70,8 @@ def ssim_batch_sharded(
         mesh=mesh,
         in_specs=(P(axis), P(axis)),
         out_specs=(P(axis), P(axis)) if with_map else (P(axis), P()),
-        check_vma=False,  # pallas_call outputs carry no vma metadata
+        # The kernel's pallas_call outputs carry no varying-axes type.
+        check_vma=False,
     )
     def shard_fn(a_s, b_s):
         partials, ssim_map = parts(a_s, b_s, with_map, data_range)
@@ -94,7 +79,9 @@ def ssim_batch_sharded(
             return partials, jnp.zeros((), jnp.float32)  # placeholder
         return partials, ssim_map
 
-    partials, ssim_map = shard_fn(a, b)
+    # Under jit, so a call outside the caller's jit compiles once instead
+    # of dispatching every primitive across the mesh.
+    partials, ssim_map = jax.jit(shard_fn)(a, b)
     return partials, (ssim_map if with_map else None)
 
 
@@ -111,7 +98,7 @@ def mean_ssim_sharded(
     k1: float = 0.01,
     k2: float = 0.03,
 ) -> jnp.ndarray:
-    """Mean SSIM over a sharded batch, reduced with psum over ICI —
+    """Mean SSIM over a sharded batch, reduced with psum —
     the distributed equivalent of the reference's final serial reduce
     (src/ssim.cpp:1098-1099). Returns a replicated f32 scalar.
     radius/sigma/k1/k2: the custom-window extension (see engine.compute)."""
@@ -129,11 +116,11 @@ def mean_ssim_sharded(
         mesh=mesh,
         in_specs=(P(axis), P(axis)),
         out_specs=P(),
-        check_vma=False,  # pallas_call outputs carry no vma metadata
+        check_vma=False,  # as in ssim_batch_sharded
     )
     def shard_fn(a_s, b_s):
         partials, _ = parts(a_s, b_s, False, data_range)
         local = jnp.sum(partials) / n  # sum of this shard's per-image SSIMs
         return jax.lax.psum(local, axis) / batch
 
-    return shard_fn(a, b)
+    return jax.jit(shard_fn)(a, b)  # jit: see ssim_batch_sharded

@@ -1,20 +1,22 @@
-"""Multi-host (multi-process) execution: the DCN story.
+"""Multi-host (multi-process) execution.
 
 The reference is strictly single-process (SURVEY §2 note: no NCCL/MPI/
-Gloo/UCX anywhere); this layer is the labeled TPU-native extension that
-scales the same sharded computations across *hosts*: each process owns
-its local chips, `jax.distributed` wires the cluster, meshes span the
-global device set, and the existing shard_map code (parallel/batch.py,
-parallel/spatial.py) runs unchanged — XLA routes collectives over ICI
-within a slice and DCN across slices.
+Gloo/UCX anywhere); this layer is the labeled extension that scales the
+same sharded computations across *hosts*: each process owns its local
+devices, `jax.distributed` wires the cluster, meshes span the global
+device set, and the existing shard_map code (parallel/batch.py,
+parallel/spatial.py) runs unchanged — XLA routes the collectives (NCCL
+between GPUs, within a host over NVLink and across hosts over the
+network).
 
 Tested for real in tests/test_multihost.py: two coordinated CPU
 processes (4 virtual devices each) run `mean_ssim_sharded` over a global
 8-device mesh and must agree with the single-process result — the same
 differential strategy SURVEY §4.8 prescribes, one level up.
 
-On actual TPU pods, `initialize()` with no arguments auto-detects the
-topology from the TPU environment; nothing else changes.
+On GPU hosts, pass the coordinator address, process count and process
+id explicitly (or run under a cluster manager JAX detects, such as
+SLURM); nothing else changes.
 """
 
 from typing import Optional, Sequence
@@ -29,8 +31,9 @@ def initialize(
 ) -> None:
     """Join (or create) a multi-process JAX cluster.
 
-    On TPU pods call with no arguments (auto-detection). For CPU
-    debugging / CI, pass all three explicitly. Idempotent: a second call
+    Pass all three explicitly (GPU hosts, CPU debugging / CI); with no
+    arguments JAX detects the cluster where its environment describes
+    one (e.g. SLURM). Idempotent: a second call
     in an already-initialized process is a no-op.
     """
     import jax

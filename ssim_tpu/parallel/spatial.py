@@ -1,14 +1,14 @@
 """Spatial sharding: one huge image split by rows across the mesh.
 
-TPU-native extension of the reference's overlapping-tile decomposition
-(each 256x64 tile carries a 5-px read halo so tiles are independent,
-src/ssim.cpp:230-239): here each *chip* owns a row band, and the 5-row
-blur halos move over ICI with `jax.lax.ppermute` instead of being re-read
-from shared memory. True image borders (shard 0's top, shard n-1's
-bottom) use clamp-to-edge replication exactly like the reference
-(src/ssim.cpp:560-582); interior shard boundaries use real neighbor rows,
-so the sharded result equals the single-device result bit-for-bit in
-structure (validated to tolerance in tests/test_distributed.py).
+Extension of the reference's overlapping-tile decomposition (each 256x64
+tile carries a 5-px read halo so tiles are independent,
+src/ssim.cpp:230-239): here each *device* owns a row band, and the r-row
+blur halos move between neighbours with `jax.lax.ppermute` instead of
+being re-read from shared memory. True image borders (shard 0's top,
+shard n-1's bottom) use clamp-to-edge replication exactly like the
+reference (src/ssim.cpp:560-582); interior shard boundaries use real
+neighbor rows, so the sharded result equals the single-device result
+(validated to tolerance in tests/test_distributed.py).
 
 Arbitrary geometry: heights that don't divide the mesh (or shards that
 would be thinner than the blur radius) are handled by internally padding
@@ -18,10 +18,11 @@ unchanged and the pad rows are sliced off the outputs. This mirrors the
 reference's ragged-tile handling (partial tiles at the image edge,
 src/ssim.cpp:227-239) rather than refusing the geometry.
 
-Both compute paths participate: `impl="pallas"` feeds each shard's
-halo-extended row band straight into the fused Pallas kernel (the TPU
-analogue of the reference's tile grid x thread pool composition,
-src/ssim.cpp:902-926); `impl="xla"` uses the XLA formulation.
+Each shard computes its halo-extended band with the dispatch-chosen
+forward: the fused kernel on the GPU (it reads the halo rows in place
+and clamps columns itself), the XLA formulation elsewhere. Gradients are
+autodiff through the XLA formulation and the ppermutes
+(ops.routing.with_xla_vjp), on every platform.
 """
 
 import functools
@@ -31,80 +32,35 @@ import jax
 import jax.numpy as jnp
 from jax.sharding import Mesh, PartitionSpec as P
 
-from ..dispatch import Implementation, backend_platform, select_impl
+from ..dispatch import Implementation, select_impl
 from ..windows import RADIUS
+
+
+def _use_kernel(impl, a, b, radius: int) -> bool:
+    """Whether each shard runs the fused kernel (dispatch + routing)."""
+    from ..ops.routing import pallas_routable
+
+    return (
+        select_impl("auto" if impl is None else impl) == Implementation.PALLAS
+        and pallas_routable(a, b, radius)
+    )
 
 
 def _edge_replica(x: jnp.ndarray, row: int, radius: int) -> jnp.ndarray:
     """Row `row` of x replicated `radius` times along -2 (clamp-to-edge
-    halo content for consumers without the kernels' in-kernel
-    substitution — the XLA formulation)."""
+    halo content)."""
     return jnp.take(x, jnp.full((radius,), row, jnp.int32), axis=-2)
 
 
-def _exchange_halo_rows_pair(
-    xa: jnp.ndarray, xb: jnp.ndarray, axis: str, n_shards: int, radius: int,
-    edge_replicas: bool = True,
-) -> Tuple[jnp.ndarray, jnp.ndarray, jnp.ndarray, jnp.ndarray]:
-    """The 2*radius vertical neighbor rows of a row-sharded image PAIR,
-    as (a_top, a_bot, b_top, b_bot) of shape (..., radius, W) — the fused
-    kernel's vhalo operands (ssim_parts_pallas), which splice them in
-    VMEM so no halo-concatenated copy of the blocks hits HBM.
-
-    top comes from the previous shard's bottom rows, bot from the next
-    shard's top rows. Both images ride ONE stacked collective per
-    direction (2 ppermutes total instead of 4). Works for any dtype and
-    any leading batch dims.
-
-    edge_replicas=False (the Pallas vmask mode) returns the RAW ring
-    outputs — the image-edge shards' halos are wrapped garbage that the
-    kernel itself replaces with clamp replicas, gated on its vmask
-    flags, so the XLA graph carries no replica construction at all.
-    Honest carried-perturbation measurement (tools/probe_spatial.py,
-    which also documents the fori-loop hoisting artifact that shaped
-    this design's history) puts the full sharded path at kernel parity.
-    With edge_replicas=True the edge shards' halos are replaced here
-    (clamp-to-edge, reference src/ssim.cpp:560-582) for consumers
-    without an in-kernel substitution mode (the XLA formulation).
-    """
-    # Bottom rows travel to the next shard (become its top halo) and vice
-    # versa. ppermute with a full ring; edge results are garbage (raw
-    # mode) or overridden below.
-    down = [(i, (i + 1) % n_shards) for i in range(n_shards)]
-    up = [(i, (i - 1) % n_shards) for i in range(n_shards)]
-    send_down = jnp.stack([xa[..., -radius:, :], xb[..., -radius:, :]])
-    send_up = jnp.stack([xa[..., :radius, :], xb[..., :radius, :]])
-    tops = jax.lax.ppermute(send_down, axis, down)
-    bots = jax.lax.ppermute(send_up, axis, up)
-    if edge_replicas:
-        idx = jax.lax.axis_index(axis)
-        edge_top = jnp.stack(
-            [_edge_replica(xa, 0, radius), _edge_replica(xb, 0, radius)]
-        )
-        edge_bot = jnp.stack(
-            [_edge_replica(xa, xa.shape[-2] - 1, radius),
-             _edge_replica(xb, xb.shape[-2] - 1, radius)]
-        )
-        tops = jnp.where(idx == 0, edge_top, tops)
-        bots = jnp.where(idx == n_shards - 1, edge_bot, bots)
-    return tops[0], bots[0], tops[1], bots[1]
-
-
-def _vmask_flags(axis: str, n_shards: int) -> Tuple[jnp.ndarray, jnp.ndarray]:
-    """(is_top, is_bot) 0/1 f32 flags for the kernels' vmask mode."""
-    idx = jax.lax.axis_index(axis)
-    return (
-        (idx == 0).astype(jnp.float32),
-        (idx == n_shards - 1).astype(jnp.float32),
-    )
-
-
-def _exchange_halo_rows(
+def _exchange_halos(
     x: jnp.ndarray, axis: str, n_shards: int, radius: int
-) -> Tuple[jnp.ndarray, jnp.ndarray]:
-    """Single-array variant of _exchange_halo_rows_pair (two ppermutes
-    for ONE array; pair callers should use the stacked pair version).
-    Same gather-built edge replicas — see _edge_replica's measurement."""
+) -> jnp.ndarray:
+    """(..., Hs, W) local rows -> (..., Hs + 2*radius, W) with r halo
+    rows on each side: the top ones from the previous shard's bottom
+    rows, the bottom ones from the next shard's top rows (two ppermutes
+    over a full ring); the image-edge shards get clamp-to-edge replicas
+    instead (reference src/ssim.cpp:560-582). Works for any dtype and
+    any leading batch dims."""
     idx = jax.lax.axis_index(axis)
     down = [(i, (i + 1) % n_shards) for i in range(n_shards)]
     up = [(i, (i - 1) % n_shards) for i in range(n_shards)]
@@ -116,32 +72,38 @@ def _exchange_halo_rows(
         _edge_replica(x, x.shape[-2] - 1, radius),
         bot_halo,
     )
-    return top_halo, bot_halo
-
-
-def _exchange_halos(
-    x: jnp.ndarray, axis: str, n_shards: int, radius: int
-) -> jnp.ndarray:
-    """Single-array concatenated-halo variant (see _exchange_halos_pair)."""
-    top_halo, bot_halo = _exchange_halo_rows(x, axis, n_shards, radius)
     return jnp.concatenate([top_halo, x, bot_halo], axis=-2)
 
 
-def _exchange_halos_pair(
-    xa: jnp.ndarray, xb: jnp.ndarray, axis: str, n_shards: int, radius: int
-) -> Tuple[jnp.ndarray, jnp.ndarray]:
-    """Concatenate neighbor halo rows onto a row-sharded image pair:
-    (..., Hs, W) local rows -> (..., Hs + 2*radius, W) each. The
-    concatenated layout for consumers without a halo-operand mode (the
-    XLA per-shard formulation and the fused backward kernel); the forward
-    Pallas branches pass _exchange_halo_rows_pair straight to the kernel
-    instead."""
-    a_top, a_bot, b_top, b_bot = _exchange_halo_rows_pair(
-        xa, xb, axis, n_shards, radius
-    )
-    return (
-        jnp.concatenate([a_top, xa, a_bot], axis=-2),
-        jnp.concatenate([b_top, xb, b_bot], axis=-2),
+def _shard_parts(a_s, b_s, axis, n_shards, with_map, radius, window,
+                 kernel):
+    """Per-shard SSIM of a row band with vertical halos from the
+    neighbours. Returns (row_sums (..., Hs), map (..., Hs, W) or None).
+
+    kernel: the fused kernel over the band, computing only the owned
+    rows; else the XLA formulation over the band with local horizontal
+    edge pads."""
+    hs = a_s.shape[-2]
+    if kernel:
+        from ..ops.ssim_pallas import ssim_parts_pallas
+
+        _, smap = ssim_parts_pallas(
+            _exchange_halos(a_s, axis, n_shards, radius),
+            _exchange_halos(b_s, axis, n_shards, radius),
+            with_map=True, radius=radius, row_offset=radius, out_h=hs,
+            **window,
+        )
+        return jnp.sum(smap, axis=-1), (smap if with_map else None)
+    from ..ops.ssim_xla import ssim_from_padded
+
+    pad = [(0, 0)] * (a_s.ndim - 1) + [(radius, radius)]
+
+    def padded(x):
+        x = _exchange_halos(x.astype(jnp.float32), axis, n_shards, radius)
+        return jnp.pad(x, pad, mode="edge")
+
+    return ssim_from_padded(
+        padded(a_s), padded(b_s), with_map=with_map, radius=radius, **window
     )
 
 
@@ -177,29 +139,24 @@ def ssim_spatial_sharded(
     edge-replicated rows and the outputs are sliced back. Returns
     (row_sums (H,) f32, map (H, W) f32 or None), row-sharded over the mesh.
 
-    impl: "auto" (fused Pallas kernel for u8/f32 inputs at any radius up
-    to MAX_FUSED_RADIUS, XLA otherwise), "pallas", or "xla".
-    radius/sigma/k1/k2: the custom-window extension — radius also sets
-    the halo exchange depth, so any radius works here (radius <= 16 on
-    the fused kernel, larger via XLA); sigma/k1/k2 ride every route.
+    impl: "auto" (the fused kernel per shard on the GPU), "pallas" or
+    "xla". radius/sigma/k1/k2: the custom-window extension — radius also
+    sets the halo exchange depth.
     """
     from ..engine import validate_window
-    from ..ops.ssim_pallas import MAX_FUSED_RADIUS
 
     validate_window(radius, sigma, k1, k2, data_range)
     radius = int(radius)
+    kernel = _use_kernel(impl, a, b, radius)
+    return _spatial_rows(a, b, mesh, axis, with_map, radius,
+                         dict(data_range=data_range, sigma=sigma, k1=k1,
+                              k2=k2), kernel)
+
+
+def _spatial_rows(a, b, mesh, axis, with_map, radius, window, kernel):
+    """ssim_spatial_sharded after validation and routing."""
     n_shards = mesh.shape[axis]
-    h, w = a.shape[-2], a.shape[-1]
-    impl = select_impl("auto" if impl is None else impl)
-    # The fused kernel serves u8 pairs natively and float32 pairs via its
-    # sanitized float path (same gate as ops/routing.py); other inputs —
-    # and radii beyond the fused halo geometry — take the XLA path.
-    float_pair = a.dtype == jnp.float32 and b.dtype == jnp.float32
-    use_pallas = (
-        impl == Implementation.PALLAS
-        and ((a.dtype == jnp.uint8 and b.dtype == jnp.uint8) or float_pair)
-        and radius <= MAX_FUSED_RADIUS
-    )
+    h = a.shape[-2]
 
     # Internal padded height: every shard at least `radius` rows tall so
     # one-neighbor halo exchange suffices.
@@ -208,73 +165,26 @@ def ssim_spatial_sharded(
     a = _pad_rows_to(jnp.asarray(a), h_pad)
     b = _pad_rows_to(jnp.asarray(b), h_pad)
 
-    if use_pallas:
-        from ..ops.ssim_pallas import ssim_parts_pallas
-
-        interpret = backend_platform() != "tpu"
-
-        def shard_body(a_s, b_s):
-            # Exchange the raw 2r neighbor rows over ICI and hand them to
-            # the fused kernel as halo operands (vhalo): the kernel
-            # splices them in VMEM, so the local rows are consumed
-            # zero-copy — no halo-concatenated image is ever written to
-            # HBM (measured ~11% of this path). The exchange is two
-            # stacked ppermutes and nothing else; the edge shards' clamp
-            # replicas are substituted inside the kernel (vmask — see
-            # _exchange_halo_rows_pair's measured rationale).
-            vh = _exchange_halo_rows_pair(a_s, b_s, axis, n_shards, radius,
-                                          edge_replicas=False)
-            vm = _vmask_flags(axis, n_shards)
-            if not with_map:
-                # Score-only: the kernel's rowsum mode emits per-row sums
-                # directly — no H*W map is ever written to HBM just to be
-                # row-reduced here (the reference keeps maps tile-local
-                # too, src/ssim.cpp:659-668).
-                rows, _ = ssim_parts_pallas(
-                    a_s, b_s, rowsum=True, data_range=data_range,
-                    interpret=interpret, allow_float=float_pair,
-                    radius=radius, sigma=sigma, k1=k1, k2=k2, vhalo=vh,
-                    vmask=vm,
-                )
-                return rows, None
-            _, ssim_map = ssim_parts_pallas(
-                a_s, b_s, with_map=True, data_range=data_range,
-                interpret=interpret, allow_float=float_pair,
-                radius=radius, sigma=sigma, k1=k1, k2=k2, vhalo=vh,
-                vmask=vm,
-            )
-            return jnp.sum(ssim_map, axis=-1), (ssim_map if with_map else None)
-    else:
-        from ..ops.ssim_xla import ssim_from_padded
-
-        def shard_body(a_s, b_s):
-            af = a_s.astype(jnp.float32)
-            bf = b_s.astype(jnp.float32)
-            # Vertical halos over ICI; horizontal borders are local edge pads.
-            ap, bp = _exchange_halos_pair(af, bf, axis, n_shards, radius)
-            ap = jnp.pad(ap, ((0, 0), (radius, radius)), mode="edge")
-            bp = jnp.pad(bp, ((0, 0), (radius, radius)), mode="edge")
-            return ssim_from_padded(
-                ap, bp, with_map=with_map, radius=radius,
-                data_range=data_range, sigma=sigma, k1=k1, k2=k2,
-            )
-
     @functools.partial(
         jax.shard_map,
         mesh=mesh,
         in_specs=(P(axis, None), P(axis, None)),
-        out_specs=(P(axis), P(axis, None)) if with_map else (P(axis), P()),
-        check_vma=False,  # pallas_call outputs carry no vma metadata
+        out_specs=(P(axis), P(axis, None)) if with_map else P(axis),
+        # A pallas_call's outputs carry no varying-axes type.
+        check_vma=not kernel,
     )
     def shard_fn(a_s, b_s):
-        row_sums, ssim_map = shard_body(a_s, b_s)
-        if ssim_map is None:
-            return row_sums, jnp.zeros((), jnp.float32)
-        return row_sums, ssim_map
+        row_sums, ssim_map = _shard_parts(
+            a_s, b_s, axis, n_shards, with_map, radius, window, kernel
+        )
+        return (row_sums, ssim_map) if with_map else row_sums
 
-    row_sums, ssim_map = shard_fn(a, b)
-    row_sums = row_sums[:h]
-    return row_sums, (ssim_map[:h] if with_map else None)
+    # Under jit, so a call outside the caller's jit compiles once instead
+    # of dispatching every primitive of the blur across the mesh.
+    out = jax.jit(shard_fn)(a, b)
+    if with_map:
+        return out[0][:h], out[1][:h]
+    return out[:h], None
 
 
 def mean_ssim_spatial(
@@ -294,19 +204,16 @@ def mean_ssim_spatial(
     """Differentiable mean SSIM of a row-sharded (H, W) pair — or a
     (B, H, W) batch, optionally batch-sharded over a second mesh axis
     (the 2-D data x space composition) — the spatial-sharding training
-    surface. Forward: fused kernel per shard for u8/f32 on the Pallas
-    impl. Backward for f32 inputs: the sharded fused analytic kernel
-    (ssim_grad_spatial_sharded) whenever the geometry allows (H divides
-    the axis, shards >= 2*radius rows, radius <= MAX_FUSED_RADIUS); XLA
-    autodiff otherwise (single-image only — batched inputs require the
-    fused-backward geometry). Both directions stay TPU-native kernels
-    with halo rows over ICI.
-    radius/sigma/k1/k2: the custom-window extension, threaded through
-    both fused kernels (radius also sets the ICI halo depth; radius >
-    MAX_FUSED_RADIUS rides the XLA formulation per shard).
+    surface. The forward runs per shard as in ssim_spatial_sharded; the
+    gradient is autodiff through the XLA formulation and the ppermutes.
+    A single pair may have any height (see ssim_spatial_sharded); a
+    batch needs H divisible by the `axis` size with shards at least
+    `radius` rows tall.
+    radius/sigma/k1/k2: the custom-window extension (radius also sets
+    the halo depth).
     """
     from ..engine import validate_window
-    from ..ops.ssim_grad import grad_pallas_supported
+    from ..ops.routing import with_xla_vjp
 
     validate_window(radius, sigma, k1, k2, data_range)
     radius = int(radius)
@@ -319,130 +226,49 @@ def mean_ssim_spatial(
         )
     if batch_axis is not None and a.ndim != 3:
         raise ValueError("batch_axis requires (B, H, W) inputs")
-    h, w = a.shape[-2], a.shape[-1]
-    batch = 1 if a.ndim == 2 else a.shape[0]
-    n = batch * h * w
+    h = a.shape[-2]
     n_shards = mesh.shape[axis]
-    float_pair = a.dtype == jnp.float32 and b.dtype == jnp.float32
-    grad_ok = (
-        float_pair
-        and grad_pallas_supported(h, w, radius)  # width + fused-radius gate
-        and h % n_shards == 0
-        and h // n_shards >= 2 * radius
+    if a.ndim == 3 and (h % n_shards != 0 or h // n_shards < radius):
+        raise ValueError(
+            f"batched mean_ssim_spatial needs H={h} divisible by the "
+            f"{axis!r} axis ({n_shards}) with shards >= {radius} rows"
+        )
+    window = dict(data_range=data_range, sigma=sigma, k1=k1, k2=k2)
+    kernel = _use_kernel(impl, a, b, radius)
+
+    def mean(use_kernel):
+        def f(xa, xb):
+            if xa.ndim == 2:
+                rows, _ = _spatial_rows(xa, xb, mesh, axis, False, radius,
+                                        window, use_kernel)
+                return jnp.sum(rows) / xa.size
+            return _sharded_sum(xa, xb, mesh, axis, batch_axis, radius,
+                                window, use_kernel) / xa.size
+        return f
+
+    if kernel and jnp.issubdtype(a.dtype, jnp.floating):
+        return with_xla_vjp(mean(True), mean(False))(a, b)
+    return mean(kernel)(a, b)
+
+
+def _sharded_sum(a, b, mesh, axis, batch_axis, radius, window, kernel):
+    """Sum of the SSIM map over every pixel of a (B, H, W) batch with
+    rows sharded over `axis` (and B over `batch_axis`), psum-reduced to a
+    replicated scalar. H must divide the axis with shards >= radius."""
+    n_shards = mesh.shape[axis]
+    spec = P(batch_axis, axis, None)
+    psum_axes = (axis,) + ((batch_axis,) if batch_axis else ())
+
+    @functools.partial(
+        jax.shard_map, mesh=mesh, in_specs=(spec, spec), out_specs=P(),
+        check_vma=not kernel,  # as in _spatial_rows
     )
+    def shard_fn(xa, xb):
+        row_sums, _ = _shard_parts(xa, xb, axis, n_shards, False, radius,
+                                   window, kernel)
+        return jax.lax.psum(jnp.sum(row_sums), psum_axes)
 
-    if a.ndim == 2:
-        def fwd_mean(xa, xb, use_impl=impl):
-            row_sums, _ = ssim_spatial_sharded(
-                xa, xb, mesh, axis=axis, data_range=data_range,
-                impl=use_impl, radius=radius, sigma=sigma, k1=k1, k2=k2,
-            )
-            return jnp.sum(row_sums) / n
-
-        if not grad_ok:
-            # The fused kernel has no autodiff rule, so geometries the
-            # sharded backward can't take route float pairs through the
-            # sharded XLA forward (differentiable); u8 pairs (no
-            # gradient) keep impl.
-            return fwd_mean(a, b, "xla" if float_pair else impl)
-    else:
-        if h % n_shards != 0 or h // n_shards < radius:
-            raise ValueError(
-                f"batched mean_ssim_spatial needs H={h} divisible by the "
-                f"{axis!r} axis ({n_shards}) with shards >= {radius} rows"
-            )
-        if a.dtype == jnp.uint8:
-            fp = False
-        elif float_pair:
-            fp = True
-        else:
-            raise ValueError(
-                f"batched mean_ssim_spatial takes uint8 or float32 pairs, "
-                f"got {a.dtype}/{b.dtype}"
-            )
-        hs = h // n_shards
-        interpret = backend_platform() != "tpu"
-        spec = P(batch_axis, axis, None)
-        psum_axes = (axis,) + ((batch_axis,) if batch_axis else ())
-        # Honor impl like the 2-D branch / ssim_spatial_sharded (a review
-        # found the batched branch silently pinning the Pallas kernel):
-        # non-Pallas impls take the XLA formulation per shard, which is
-        # plainly differentiable — no custom VJP needed.
-        from ..ops.ssim_pallas import MAX_FUSED_RADIUS, ssim_parts_pallas
-        from ..ops.ssim_xla import ssim_from_padded
-
-        use_pallas = (
-            select_impl("auto" if impl is None else impl)
-            == Implementation.PALLAS
-            and radius <= MAX_FUSED_RADIUS
-        )
-
-        @functools.partial(
-            jax.shard_map, mesh=mesh, in_specs=(spec, spec), out_specs=P(),
-            check_vma=False,
-        )
-        def fwd_sharded(xa, xb):
-            if use_pallas:
-                # Score-only: rowsum mode with halo operands — per-row
-                # sums straight from the kernel, no HBM map round trip
-                # and no halo-concatenated copy (see the 2-D branch).
-                vh = _exchange_halo_rows_pair(xa, xb, axis, n_shards,
-                                              radius, edge_replicas=False)
-                rows, _ = ssim_parts_pallas(
-                    xa, xb, rowsum=True, data_range=data_range,
-                    interpret=interpret, allow_float=fp,
-                    radius=radius, sigma=sigma, k1=k1, k2=k2, vhalo=vh,
-                    vmask=_vmask_flags(axis, n_shards),
-                )
-                local = jnp.sum(rows)
-            else:
-                ae, be = _exchange_halos_pair(xa, xb, axis, n_shards, radius)
-                # ssim_from_padded consumes the r-row vertical halos as
-                # its padding (plus local horizontal edge pads), emitting
-                # exactly the hs owned rows.
-                pad = ((0, 0), (0, 0), (radius, radius))
-                row_sums, _ = ssim_from_padded(
-                    jnp.pad(ae.astype(jnp.float32), pad, mode="edge"),
-                    jnp.pad(be.astype(jnp.float32), pad, mode="edge"),
-                    data_range=data_range, radius=radius, sigma=sigma,
-                    k1=k1, k2=k2,
-                )
-                local = jnp.sum(row_sums)
-            return jax.lax.psum(local, psum_axes) / n
-
-        def fwd_mean(xa, xb):
-            return fwd_sharded(xa, xb)
-
-        if a.dtype == jnp.uint8:
-            return fwd_mean(a, b)  # no gradient through u8 anyway
-        if not use_pallas:
-            # XLA formulation: ordinary autodiff through the sharded
-            # forward (ppermute is transposable); no custom VJP.
-            return fwd_mean(a, b)
-        if not grad_ok:
-            raise ValueError(
-                f"batched differentiable mean_ssim_spatial needs shards "
-                f">= {2 * radius} rows and w > {radius} (got {h}x{w} over "
-                f"{n_shards} shards); use fewer shards"
-            )
-
-    @jax.custom_vjp
-    def f(xa, xb):
-        return fwd_mean(xa, xb)
-
-    def f_fwd(xa, xb):
-        return f(xa, xb), (xa, xb)
-
-    def f_bwd(res, g):
-        xa, xb = res
-        return ssim_grad_spatial_sharded(
-            xa, xb, mesh, axis=axis, batch_axis=batch_axis,
-            w_s=jnp.asarray(g, jnp.float32) / n, data_range=data_range,
-            radius=radius, sigma=sigma, k1=k1, k2=k2,
-        )
-
-    f.defvjp(f_fwd, f_bwd)
-    return f(a, b)
+    return jax.jit(shard_fn)(a, b)  # jit: see _spatial_rows
 
 
 def ssim_grad_spatial_sharded(
@@ -461,51 +287,22 @@ def ssim_grad_spatial_sharded(
     k2: float = 0.03,
 ) -> Tuple[jnp.ndarray, jnp.ndarray]:
     """(dL/da, dL/db) for L = w_s * sum_p SSIM(p) of ONE row-sharded
-    float32 (H, W) pair — the fused analytic backward kernel
-    (ops/ssim_grad.py) running across the mesh. The TPU-native
-    distributed-training story: forward AND backward stay in fused
-    kernels, with only 2*radius halo rows per shard moving over ICI
-    (radius <= MAX_FUSED_RADIUS, the fused kernels' bound).
-
-    Why it is exact (each shard returns the true global gradients of its
-    own rows):
-
-    - Cross-shard terms: the gradient at a shard's row x sums
-      weight-map rows within RADIUS of x, and a weight-map row needs
-      blurred signals within RADIUS of it — a two-level dependency
-      reaching 2*RADIUS rows into the neighbor. Exchanging M = 2*RADIUS
-      true rows makes every weight-map row within RADIUS of the owned
-      region exact (its blurs read only true content, far enough from
-      the artificial band edge that the kernel's own clamp never
-      fires). Halo rows whose weight maps ARE clamp-polluted sit
-      >= RADIUS deeper and cannot reach owned rows.
-    - No double counting: every shard's kernel call includes the
-      neighbor halo rows' loss terms (their cotangent mask is 1), but
-      each shard keeps only its OWN rows of the output — the halo-row
-      gradients are the neighbor's to compute.
-    - True image borders: the top/bottom shards see M edge-replica halo
-      rows (clamp-to-edge content). Their loss terms are masked to 0
-      through the kernel's per-pixel g_map cotangent (they do not exist
-      in the true loss), and the replica rows' GRADIENTS are folded
-      back onto the edge row — the exact adjoint of clamp-to-edge
-      replication, which is how the folded tap mass of the reference's
-      border rule (src/ssim.cpp:560-582) reaches the edge pixel.
+    float32 (H, W) pair, or of a (B, H, W) batch with rows sharded over
+    `axis` and B optionally over `batch_axis` (the 2-D data x space
+    composition). Computed by autodiff through the sharded XLA forward
+    (_sharded_sum): each shard's gradient rows come back row-sharded like
+    the inputs, with only the r-row halos crossing between devices.
 
     Requirements: float32 inputs (u8 has no gradient), H divisible by
-    the axis size, and shards at least 2*RADIUS rows tall (use fewer
-    shards or the single-device kernel otherwise). w_s may be a traced
-    scalar (e.g. a loss cotangent / (H*W)).
-
-    Batched form: (B, H, W) pairs with rows still sharded over `axis`;
-    `batch_axis` optionally shards B over a second mesh axis (the 2-D
-    data x space composition the training dryrun uses). The kernel
-    batches natively, so this is the same exactness argument per image.
+    the axis size, and shards at least 2*radius rows tall. w_s may be a
+    traced scalar (e.g. a loss cotangent / (H*W)). interpret is accepted
+    for compatibility and ignored: no kernel runs here.
 
     Validated against jax.grad of the unsharded XLA formulation across
     shard counts and edge geometries (tests/test_distributed.py).
     """
+    del interpret
     from ..engine import validate_window
-    from ..ops.ssim_grad import grad_pallas_supported, ssim_grad_pallas
 
     validate_window(radius, sigma, k1, k2, data_range)
     radius = int(radius)
@@ -524,51 +321,26 @@ def ssim_grad_spatial_sharded(
             f"{a.dtype}/{b.dtype}"
         )
     n_shards = mesh.shape[axis]
-    h, w = a.shape[-2:]
-    if not grad_pallas_supported(h, w, radius):
-        raise ValueError(
-            f"the fused backward needs w > radius and radius <= "
-            f"MAX_FUSED_RADIUS; got {h}x{w} at radius {radius}"
-        )
-    m = 2 * radius
-    if h % n_shards != 0 or h // n_shards < m:
+    h = a.shape[-2]
+    if h % n_shards != 0 or h // n_shards < 2 * radius:
         raise ValueError(
             f"H={h} must divide the {axis!r} axis ({n_shards}) with shards "
-            f">= {m} rows tall; use fewer shards or the single-device kernel"
+            f">= {2 * radius} rows tall; use fewer shards"
         )
-    hs = h // n_shards
-    if interpret is None:
-        interpret = backend_platform() != "tpu"
     w_arr = jnp.asarray(w_s, jnp.float32)
     if w_arr.ndim != 0:
         raise ValueError(
             "w_s must be a scalar (per-image weights would need their own "
             f"sharding spec), got shape {w_arr.shape}"
         )
-    spec = P(axis, None) if a.ndim == 2 else P(batch_axis, axis, None)
+    window = dict(data_range=data_range, sigma=sigma, k1=k1, k2=k2)
+    squeeze = a.ndim == 2
+    if squeeze:
+        a, b = a[None], b[None]
 
-    @functools.partial(
-        jax.shard_map,
-        mesh=mesh,
-        in_specs=(spec, spec),
-        out_specs=(spec, spec),
-        check_vma=False,  # pallas_call outputs carry no vma metadata
-    )
-    def shard_fn(a_s, b_s):
-        # The 2r neighbor rows ride as kernel halo operands (vhalo), the
-        # same zero-copy design as the forward: no halo-concatenated
-        # (Hs+4r, W) copies in HBM, one stacked ppermute per direction
-        # and nothing else host-side. The kernel handles what the old
-        # concat formulation did here: the nonexistent-loss-row mask,
-        # the edge shards' clamp replicas, and the replica-row gradient
-        # fold all move in-kernel, gated on the vmask flags
-        # (ops/ssim_grad.py vhalo mode).
-        vh = _exchange_halo_rows_pair(a_s, b_s, axis, n_shards, m,
-                                      edge_replicas=False)
-        return ssim_grad_pallas(
-            a_s, b_s, w_arr, 0.0, data_range=data_range,
-            interpret=interpret, radius=radius, sigma=sigma, k1=k1, k2=k2,
-            vhalo=vh, vmask=_vmask_flags(axis, n_shards),
-        )
+    def loss(xa, xb, ws):
+        return ws * _sharded_sum(xa, xb, mesh, axis, batch_axis, radius,
+                                 window, False)
 
-    return shard_fn(a, b)
+    da, db = jax.jit(jax.grad(loss, argnums=(0, 1)))(a, b, w_arr)
+    return (da[0], db[0]) if squeeze else (da, db)

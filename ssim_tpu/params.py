@@ -146,7 +146,7 @@ def write_strided_map(
     include/rmgr/ssim.h:514-516; negative strides supported like the
     image-side contract, :516,553).
 
-    The device always produces contiguous maps (the documented TPU-side
+    The device always produces contiguous maps (the documented device-side
     divergence: XLA owns layout); this host-side writer restores the
     reference's arbitrary-output-layout capability, e.g. interleaved
     per-channel maps (step = channel count, the CLI's usage,

@@ -93,21 +93,18 @@ def run_report(quick: bool = False, out=sys.stdout):
     out.write("\nThroughput (Mpix/s)\n")
     out.write(f"{'impl':>10} | {'eager nomap':>11} | {'eager map':>11} | "
               f"{'device nomap':>12} | {'device map':>12}\n")
-    on_tpu = jax.devices()[0].platform == "tpu"
+    on_gpu = jax.devices()[0].platform == "gpu"
     for impl in impls:
         no_map = pixels[(impl, False)] / ticks[(impl, False)] / 1e6
         w_map = pixels[(impl, True)] / ticks[(impl, True)] / 1e6
         # Steady-state device numbers via the on-device-loop methodology
-        # (devicebench.py); the eager columns include per-call host
-        # transfers and RTT (the reference's harness semantics,
-        # tests/rmgr-ssim-tests.cpp:107-152, on its local CPU). The XLA
-        # path is skipped on TPU (its ~160 s/shape compile isn't worth a
-        # report run) and Pallas is skipped off-TPU (interpret mode
-        # measures nothing real).
+        # (devicebench.py), on the GPU only: a CPU rate is not a device
+        # rate. The eager columns include per-call host transfers (the
+        # reference's harness semantics, tests/rmgr-ssim-tests.cpp:107-152,
+        # on its local CPU).
         dev = [float("nan")] * 2
-        measurable = (impl == Implementation.PALLAS and on_tpu) or (
-            impl == Implementation.XLA and not on_tpu
-        )
+        measurable = on_gpu and impl in (Implementation.PALLAS,
+                                         Implementation.XLA)
         if measurable and not quick:
             from .devicebench import device_throughput
 

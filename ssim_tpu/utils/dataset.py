@@ -1,8 +1,8 @@
 """Batch image-pair loading for high-throughput evaluation.
 
 The reference is a single-pair library; its CLI decodes two files per
-process (src/ssim-cli.cpp:261-271). A production TPU deployment instead
-streams batches: this loader decodes image pairs with a thread pool
+process (src/ssim-cli.cpp:261-271). A production deployment on an accelerator
+instead streams batches: this loader decodes image pairs with a thread pool
 (decode is the host-side bottleneck at multi-Gpix/s device throughput),
 groups them by resolution (XLA shapes are static), and yields stacked
 uint8 batches ready for `compute_ssim` / `ssim_batch_sharded`.

@@ -18,12 +18,23 @@ from typing import Optional
 import numpy as np
 
 
+def _pil_image():
+    """PIL.Image, imported on first use: only image-file I/O needs it
+    (the `cli` extra), never the library's compute path."""
+    try:
+        from PIL import Image
+    except ImportError:
+        raise ImportError(
+            "reading and writing image files needs Pillow; install it "
+            "with: pip install 'ssim-tpu[cli]'"
+        ) from None
+    return Image
+
+
 def load_image(path: str, channels: Optional[int] = None) -> np.ndarray:
     """Load an image as uint8 (H, W) or (H, W, C), like stbi_load with
     desired_channels=0 (src/ssim-cli.cpp:92-104)."""
-    from PIL import Image
-
-    img = Image.open(path)
+    img = _pil_image().open(path)
     # Match stb: keep native channel count; no alpha premultiply.
     arr = np.asarray(img)
     if arr.dtype != np.uint8:
@@ -124,8 +135,7 @@ def save_map(path: str, ssim_map: np.ndarray) -> None:
         _save_tga(path, q)
         return
     if ext in (".png", ".bmp"):
-        from PIL import Image
-
+        Image = _pil_image()
         if q.ndim == 3 and q.shape[2] == 2:
             img = Image.fromarray(q, mode="LA")  # gray+alpha maps
         else:

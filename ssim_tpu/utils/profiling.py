@@ -1,8 +1,7 @@
 """Profiling / tracing hooks.
 
 The reference has no tracing layer (SURVEY.md §5: perf measurement lives
-only in its test harness); this is new TPU-native surface, labeled as
-such. Wraps jax.profiler so users can capture device traces of the SSIM
+only in its test harness); this is new surface, labeled as such. Wraps jax.profiler so users can capture device traces of the SSIM
 pipeline for the XProf/TensorBoard toolchain.
 """
 
@@ -38,9 +37,9 @@ class Timer:
     """Wall-clock timer for quick measurements without a full trace.
 
     The caller is responsible for blocking on device outputs inside the
-    block (e.g. via a host readback); JAX dispatch is asynchronous. NOTE:
-    on RPC-attached TPUs a synchronous round-trip costs tens of ms — use
-    bench.py's on-device loop methodology for steady-state numbers."""
+    block (e.g. via a host readback); JAX dispatch is asynchronous. For
+    steady-state device rates use the on-device loop of
+    ssim_tpu/testing/devicebench.py."""
 
     def __init__(self):
         self.elapsed: Optional[float] = None

@@ -5,13 +5,13 @@ sampling exp(-(x^2+y^2)/(2 sigma^2)) and normalizing the full 11x11 table to
 sum 1 (src/ssim.cpp:272-318). Its SIMD kernels hard-code the 21 unique
 coefficients of that normalized table (e.g. src/ssim_sse.cpp:204-212).
 
-TPU-first design: the sampled 2-D Gaussian is an exact outer product
+Separable design: the sampled 2-D Gaussian is an exact outer product
 g(x)*g(y), and normalizing by the full-table sum (= (sum g)^2) keeps it an
 exact outer product of *normalized 1-D taps*. We therefore run two 1-D
 passes (rows then columns) with the 11 taps below — mathematically equal to
-the reference's 2-D window, and the natural gather-style formulation for the
-TPU VPU (the reference's scatter-style blur, src/ssim.cpp:451-462, does not
-map to TPU). Verified against the frozen 21-coefficient table to < 3e-9
+the reference's 2-D window, and the natural gather-style formulation for a
+device (the reference's scatter-style blur, src/ssim.cpp:451-462, does not
+map to one). Verified against the frozen 21-coefficient table to < 3e-9
 (the residual is the reference's own f32 rounding of the table).
 """
 

@@ -103,7 +103,7 @@ def test_multichannel_batched_equals_serial(rng):
     res = compute_ssim_channels(a, b, impl="xla")
     for c in range(3):
         want = compute_ssim(a[:, :, c], b[:, :, c], impl="xla")
-        # 1e-8: on real TPU the batched channel stack fuses/reduces in a
+        # 1e-8: on an accelerator the batched channel stack fuses/reduces in a
         # different order than the serial calls (measured diff ~1.6e-9).
         assert res.per_channel[c] == pytest.approx(want, abs=1e-8)
     assert res.average == pytest.approx(np.mean(res.per_channel), abs=1e-12)

@@ -86,15 +86,16 @@ def test_spatial_small_shards(rng):
 
 
 def test_batch_sharded_pallas_impl(rng, mesh8):
-    """The fused-kernel path must also work inside shard_map (interpret
-    mode on the CPU mesh; compiled on real TPU pods)."""
+    """The dispatch-chosen per-shard path inside shard_map matches the
+    unsharded engine (the XLA formulation on the CPU mesh, the fused
+    kernel on GPUs)."""
     pairs = [random_pair(rng, 48, 80) for _ in range(8)]
     a = np.stack([p[0] for p in pairs])
     b = np.stack([p[1] for p in pairs])
-    partials, _ = ssim_batch_sharded(a, b, mesh8, impl="pallas")
+    partials, _ = ssim_batch_sharded(a, b, mesh8, impl="auto")
     scores = engine.finalize_mean(np.asarray(partials), 48 * 80)
     for i in range(8):
-        single = compute_ssim(a[i], b[i], impl="pallas")
+        single = compute_ssim(a[i], b[i], impl="auto")
         assert scores[i] == pytest.approx(single, abs=1e-7)
 
 
@@ -135,29 +136,27 @@ def test_spatial_tiny_height(rng):
 
 @pytest.mark.parametrize("h", [200, 53])
 def test_spatial_pallas_matches_unsharded(rng, h):
-    """The flagship fused kernel under spatial sharding (VERDICT r1 #3):
-    halo rows travel over ICI (ppermute on the raw u8 rows) and feed the
-    Pallas kernel directly — the TPU analogue of the reference's tile grid
-    x thread pool composition (src/ssim.cpp:902-926)."""
+    """Spatial sharding through the dispatch-chosen impl: halo rows travel
+    between shards (ppermute) and each shard's band matches the
+    unsharded result — the analogue of the reference's tile grid x
+    thread pool composition (src/ssim.cpp:902-926)."""
     import jax
 
     if len(jax.devices()) < 4:
         pytest.skip("needs 4 devices")
     mesh = make_mesh((4,), ("space",))
     a, b = random_pair(rng, h, 96)
-    row_sums, smap = ssim_spatial_sharded(a, b, mesh, with_map=True, impl="pallas")
+    row_sums, smap = ssim_spatial_sharded(a, b, mesh, with_map=True, impl="auto")
     assert row_sums.shape == (h,) and smap.shape == (h, 96)
     got = engine.finalize_mean(np.asarray(row_sums), h * 96)
-    want, want_map = compute_ssim(a, b, with_map=True, impl="pallas")
+    want, want_map = compute_ssim(a, b, with_map=True, impl="auto")
     assert float(got) == pytest.approx(want, abs=1e-6)
     assert np.abs(np.asarray(smap) - want_map).max() < 1e-5
 
 
 def test_spatial_pallas_wide_mxu_mode(rng):
-    """Spatial sharding with a shard width in the MXU lane mode's range
-    (w >= 512): the fused kernel runs per shard under shard_map with the
-    unit-split horizontal passes and must still match the unsharded
-    engine."""
+    """Spatial sharding of a wide image (w = 640) over 8 shards must
+    match the unsharded engine."""
     import jax
 
     from ssim_tpu.parallel.mesh import make_mesh
@@ -168,9 +167,9 @@ def test_spatial_pallas_wide_mxu_mode(rng):
     mesh = make_mesh((8,), ("space",))
     h, w = 96, 640
     a, b = random_pair(rng, h, w)
-    row_sums, _ = ssim_spatial_sharded(a, b, mesh, impl="pallas")
+    row_sums, _ = ssim_spatial_sharded(a, b, mesh, impl="auto")
     got = float(np.asarray(row_sums, np.float64).sum() / (h * w))
-    want = compute_ssim(a, b, impl="pallas")
+    want = compute_ssim(a, b, impl="auto")
     assert got == pytest.approx(want, abs=2e-6)
 
 
@@ -178,11 +177,10 @@ def test_spatial_pallas_wide_mxu_mode(rng):
     "n_shards,h", [(1, 60), (2, 120), (4, 120), (8, 160), (8, 80)]
 )
 def test_grad_spatial_sharded_matches_unsharded(rng, n_shards, h):
-    """The fused backward kernel under spatial sharding returns the exact
-    global gradients: every shard count (incl. the hs == 2*RADIUS minimum
-    at (8, 80)) must match jax.grad of the unsharded XLA formulation —
-    edge shards exercise the replica-halo mask + grad fold, interior
-    shards the cross-boundary weight-map terms."""
+    """The sharded backward returns the exact global gradients: every
+    shard count (incl. the hs == 2*RADIUS minimum at (8, 80)) must match
+    jax.grad of the unsharded XLA formulation — edge shards exercise the
+    clamp replicas, interior shards the cross-boundary halo terms."""
     import jax
     import jax.numpy as jnp
 
@@ -254,8 +252,8 @@ def test_grad_spatial_sharded_rejects_bad_geometry(rng):
 
 
 def test_spatial_pallas_float_pair(rng):
-    """float32 pairs ride the fused kernel under spatial sharding
-    (allow_float path) and match the unsharded XLA value."""
+    """float32 pairs under spatial sharding match the unsharded XLA
+    value."""
     import jax.numpy as jnp
 
     from ssim_tpu.ops.ssim_xla import ssim_parts_xla
@@ -265,7 +263,7 @@ def test_spatial_pallas_float_pair(rng):
     b = np.clip(a + rng.normal(0, 0.06, a.shape), 0, 1).astype(np.float32)
     mesh = make_mesh((4,), ("space",))
     row_sums, smap = ssim_spatial_sharded(
-        a, b, mesh, data_range=1.0, with_map=True, impl="pallas"
+        a, b, mesh, data_range=1.0, with_map=True, impl="auto"
     )
     want = float(jnp.sum(
         ssim_parts_xla(jnp.asarray(a), jnp.asarray(b), data_range=1.0)[0]
@@ -276,7 +274,7 @@ def test_spatial_pallas_float_pair(rng):
 
 
 def test_mean_ssim_spatial_differentiable(rng):
-    """mean_ssim_spatial: sharded fused forward + sharded fused backward;
+    """mean_ssim_spatial: sharded forward and its autodiff backward;
     value and gradient match the unsharded XLA formulation."""
     import jax
     import jax.numpy as jnp
@@ -288,31 +286,31 @@ def test_mean_ssim_spatial_differentiable(rng):
     a = rng.random((h, w)).astype(np.float32)
     b = np.clip(a + rng.normal(0, 0.06, a.shape), 0, 1).astype(np.float32)
     mesh = make_mesh((4,), ("space",))
-    val = float(mean_ssim_spatial(a, b, mesh, data_range=1.0, impl="pallas"))
+    val = float(mean_ssim_spatial(a, b, mesh, data_range=1.0, impl="auto"))
     want = float(jnp.sum(ssim_parts_xla(
         jnp.asarray(a), jnp.asarray(b), data_range=1.0)[0]) / (h * w))
     assert val == pytest.approx(want, abs=1e-6)
 
     loss = lambda x: 1.0 - mean_ssim_spatial(
-        x, b, mesh, data_range=1.0, impl="pallas")
+        x, b, mesh, data_range=1.0, impl="auto")
     ga = jax.grad(loss)(jnp.asarray(a))
     gx = jax.grad(lambda x: 1.0 - jnp.sum(ssim_parts_xla(
         x, jnp.asarray(b), data_range=1.0)[0]) / (h * w))(jnp.asarray(a))
     scale = float(jnp.abs(gx).max())
     assert float(jnp.abs(ga - gx).max()) <= 3e-5 * scale
 
-    # geometry the sharded backward can't take falls back to autodiff
-    a9 = a[:117]  # 117 % 4 != 0 -> padded forward, autodiff VJP
+    # a height that does not divide the mesh: padded forward, autodiff
+    a9 = a[:117]
     b9 = b[:117]
     g9 = jax.grad(lambda x: 1.0 - mean_ssim_spatial(
-        x, b9, mesh, data_range=1.0, impl="pallas"))(jnp.asarray(a9))
+        x, b9, mesh, data_range=1.0, impl="auto"))(jnp.asarray(a9))
     assert bool(jnp.isfinite(g9).all())
 
 
 def test_mean_ssim_spatial_batched_2d_mesh(rng):
     """(B, H, W) batch on a 2-D data x space mesh: batch sharded over
-    'data', rows over 'space'; value and gradient (fused both
-    directions) match unsharded XLA autodiff. Also covers the
+    'data', rows over 'space'; value and gradient match unsharded XLA
+    autodiff. Also covers the
     replicated-batch form (batch_axis=None) and the u8 batched forward."""
     import jax
     import jax.numpy as jnp
@@ -330,7 +328,7 @@ def test_mean_ssim_spatial_batched_2d_mesh(rng):
 
     val = float(mean_ssim_spatial(a, b, mesh, axis="space",
                                   batch_axis="data", data_range=1.0,
-                                  impl="pallas"))
+                                  impl="auto"))
     want = float(jnp.sum(ssim_parts_xla(
         jnp.asarray(a), jnp.asarray(b), data_range=1.0)[0]) / (B * h * w))
     assert val == pytest.approx(want, abs=1e-6)
@@ -340,12 +338,12 @@ def test_mean_ssim_spatial_batched_2d_mesh(rng):
     scale = float(jnp.abs(gx).max())
     ga = jax.grad(lambda x: 1.0 - mean_ssim_spatial(
         x, b, mesh, axis="space", batch_axis="data", data_range=1.0,
-        impl="pallas"))(jnp.asarray(a))
+        impl="auto"))(jnp.asarray(a))
     assert float(jnp.abs(ga - gx).max()) <= 3e-5 * scale
 
     mesh1 = make_mesh((4,), ("space",))
     ga2 = jax.grad(lambda x: 1.0 - mean_ssim_spatial(
-        x, b, mesh1, data_range=1.0, impl="pallas"))(jnp.asarray(a))
+        x, b, mesh1, data_range=1.0, impl="auto"))(jnp.asarray(a))
     assert float(jnp.abs(ga2 - gx).max()) <= 3e-5 * scale
 
     u8a = (a * 255).astype(np.uint8)
@@ -360,8 +358,7 @@ def test_mean_ssim_spatial_batched_2d_mesh(rng):
 
 def test_mean_ssim_sharded_custom_window(rng, mesh8):
     """The custom-window extension rides the batch-DP layer: sigma/k1/k2
-    through the fused kernel per shard, custom radius through the XLA
-    path per shard; both must match the unsharded engine."""
+    and a custom radius per shard must match the unsharded engine."""
     pairs = [random_pair(rng, 48, 64) for _ in range(8)]
     a = np.stack([p[0] for p in pairs])
     b = np.stack([p[1] for p in pairs])
@@ -378,8 +375,8 @@ def test_mean_ssim_sharded_custom_window(rng, mesh8):
 
 
 def test_spatial_sharded_custom_window(rng, mesh8):
-    """sigma/k1/k2 through the spatial layer: forward (fused kernel per
-    shard with halo rows) and the sharded fused backward."""
+    """sigma/k1/k2 through the spatial layer: forward (per shard with
+    halo rows) and the sharded backward."""
     import jax
     import jax.numpy as jnp
 
@@ -387,7 +384,7 @@ def test_spatial_sharded_custom_window(rng, mesh8):
     a, b = random_pair(rng, 160, 96)
     kw = dict(sigma=2.0, k1=0.02, k2=0.05)
 
-    row_sums, _ = ssim_spatial_sharded(a, b, space, impl="pallas", **kw)
+    row_sums, _ = ssim_spatial_sharded(a, b, space, impl="auto", **kw)
     got = engine.finalize_mean(np.asarray(row_sums), 160 * 96)
     want = compute_ssim(a, b, **kw)
     assert got == pytest.approx(want, abs=2e-6)
@@ -397,10 +394,9 @@ def test_spatial_sharded_custom_window(rng, mesh8):
     got_r = engine.finalize_mean(np.asarray(row_sums_r), 160 * 96)
     assert got_r == pytest.approx(compute_ssim(a, b, radius=3), abs=2e-6)
 
-    # ... and the FUSED route (round-4: radius-generic halo geometry),
-    # including a radius whose halo depth exceeds one 8-row sublane tile.
+    # ... and a radius whose halo is deeper than the default window's.
     row_sums_f, _ = ssim_spatial_sharded(a, b, space, radius=9, sigma=3.0,
-                                         impl="pallas")
+                                         impl="auto")
     got_f = engine.finalize_mean(np.asarray(row_sums_f), 160 * 96)
     assert got_f == pytest.approx(
         compute_ssim(a, b, radius=9, sigma=3.0), abs=2e-6
@@ -420,8 +416,8 @@ def test_spatial_sharded_custom_window(rng, mesh8):
     )(af)
     np.testing.assert_allclose(np.asarray(ga), np.asarray(ga_x), atol=2e-7)
 
-    # Custom radius through the sharded fused backward (the ICI halo
-    # depth and the kernel geometry both follow the window).
+    # Custom radius through the sharded backward (the halo depth
+    # follows the window).
     ga_r = jax.grad(
         lambda x: mean_ssim_spatial(x, bf, space, radius=8, sigma=2.5)
     )(af)
@@ -434,8 +430,7 @@ def test_spatial_sharded_custom_window(rng, mesh8):
 
 
 def test_batched_mean_ssim_spatial_honors_xla_impl(rng, mesh8):
-    """The batched branch honors impl (a review found it pinning the
-    Pallas kernel): impl='xla' runs the XLA formulation per shard and is
+    """The batched branch takes impl='xla': the XLA formulation per shard,
     differentiable by ordinary autodiff through the ppermute."""
     import jax
     import jax.numpy as jnp

@@ -1,10 +1,13 @@
-"""Fused backward-kernel tests (ops/ssim_grad.py).
+"""Gradient tests for the training surface (ssim, ssim_and_map, ssim_loss,
+ms_ssim).
 
-The analytic VJP must agree with the XLA formulation's autodiff VJP — an
-independent derivation of the same gradient (different forward
-expression, borders handled by jnp.pad-edge's own adjoint) — to f32
-tolerance across geometries that exercise every border-fold case, plus
-the cs-cotangent channel MS-SSIM uses and the end-to-end training APIs.
+Every gradient is autodiff through the XLA formulation. On the fused
+kernel's route (impl="pallas", the GPU default; here the Pallas
+interpreter through the `interpret_kernel` fixture) the kernel is the
+primal and ops.routing.with_xla_vjp supplies the XLA formulation's VJP.
+The checks: kernel route against the XLA route, f32 against f64 autodiff,
+and f64 finite differences of the NumPy oracle as independent ground
+truth — across geometries that exercise every border-fold case.
 """
 
 import numpy as np
@@ -14,17 +17,8 @@ import jax
 import jax.numpy as jnp
 
 from conftest import random_pair
-from ssim_tpu.ops.ssim_grad import (
-    GRAD_MAX_W,
-    grad_pallas_supported,
-    ssim_grad_pallas,
-)
+from ssim_tpu import ms_ssim, ssim, ssim_and_map, ssim_loss
 from ssim_tpu.ops.ssim_xla import ssim_parts_xla
-
-
-def _xla_sum_ssim(a, b, data_range):
-    rs, _ = ssim_parts_xla(a, b, with_map=False, data_range=data_range)
-    return jnp.sum(rs)
 
 
 def _float_pair(rng, h, w, batch=None):
@@ -34,9 +28,12 @@ def _float_pair(rng, h, w, batch=None):
     return a, b
 
 
+def _grad(fn, a, b):
+    return jax.grad(lambda x, y: jnp.sum(fn(x, y)), argnums=(0, 1))(a, b)
+
+
 # Geometries covering: aligned, odd/ragged both dims, single-tile,
-# multi-tile rows, tiny (every lane is an edge fold), and >= MXU_MIN_W
-# widths (the hybrid VPU/MXU unit-split branch, aligned and ragged).
+# multi-tile rows and columns, tiny (every pixel is an edge fold).
 GEOMETRIES = [
     (48, 64), (33, 47), (97, 128), (20, 256), (8, 8), (128, 96), (7, 11),
     (64, 640), (40, 517),
@@ -44,193 +41,154 @@ GEOMETRIES = [
 
 
 @pytest.mark.parametrize("h,w", GEOMETRIES)
-def test_grad_matches_xla_vjp(rng, h, w):
+def test_grad_matches_xla_vjp(rng, h, w, interpret_kernel):
+    """The kernel route's gradient is the XLA formulation's."""
     a, b = _float_pair(rng, h, w)
-    ga_x, gb_x = jax.grad(
-        lambda x, y: _xla_sum_ssim(x, y, 1.0), argnums=(0, 1)
-    )(a, b)
-    ga_p, gb_p = ssim_grad_pallas(a, b, 1.0, 0.0, data_range=1.0, interpret=True)
-    np.testing.assert_allclose(np.asarray(ga_p), np.asarray(ga_x), atol=2e-5)
-    np.testing.assert_allclose(np.asarray(gb_p), np.asarray(gb_x), atol=2e-5)
+    gp = _grad(lambda x, y: ssim(x, y, data_range=1.0, impl="pallas"), a, b)
+    gx = _grad(lambda x, y: ssim(x, y, data_range=1.0, impl="xla"), a, b)
+    for p, x in zip(gp, gx):
+        np.testing.assert_allclose(np.asarray(p), np.asarray(x), atol=1e-7)
+
+
+@pytest.mark.parametrize("h,w", [(48, 64), (33, 47), (7, 11), (40, 517)])
+def test_grad_matches_f64_autodiff(rng, h, w):
+    """f32 autodiff against the same formulation differentiated in f64:
+    the bound chip_smoke applies on the card, 3e-5 of max |g|."""
+    a, b = _float_pair(rng, h, w)
+    g = np.asarray(jax.grad(lambda x: ssim_loss(x, b))(a))
+    with jax.enable_x64(True):
+        g64 = np.asarray(jax.grad(lambda x: 1.0 - jnp.sum(ssim_parts_xla(
+            x, jnp.asarray(b, jnp.float64), data_range=1.0,
+            dtype=jnp.float64)[0]) / (h * w))(jnp.asarray(a, jnp.float64)))
+    assert np.abs(g - g64).max() <= 3e-5 * np.abs(g64).max()
 
 
 def test_grad_cs_channel_matches_autodiff(rng):
-    """The w_cs cotangent channel (MS-SSIM's per-scale cs sums)."""
+    """The contrast-structure map MS-SSIM averages differentiates like
+    the full SSIM map: both through the same stacked four-signal blur."""
     from ssim_tpu.models.msssim import _l_cs_maps
     from ssim_tpu.windows import RADIUS, SIGMA, gaussian_taps
 
-    taps = gaussian_taps(np.float32, RADIUS, SIGMA)
-    c1, c2 = np.float32(1e-4), np.float32(9e-4)
-    a, b = _float_pair(rng, 33, 47)
+    a, b = _float_pair(rng, 40, 56)
 
-    def cs_sum(x, y):
-        _, cs = _l_cs_maps(x, y, c1, c2, taps)
-        return jnp.sum(cs)
+    def mean_cs(x, dtype):
+        taps = gaussian_taps(np.dtype(dtype), RADIUS, SIGMA)
+        c1, c2 = np.asarray(0.01 ** 2, dtype), np.asarray(0.03 ** 2, dtype)
+        return jnp.mean(_l_cs_maps(x, jnp.asarray(b, dtype), c1, c2, taps)[1])
 
-    gx = jax.grad(cs_sum, argnums=(0, 1))(a, b)
-    gp = ssim_grad_pallas(a, b, 0.0, 1.0, data_range=1.0, interpret=True)
-    for p, x in zip(gp, gx):
-        np.testing.assert_allclose(np.asarray(p), np.asarray(x), atol=1e-5)
-
-
-def test_grad_batched_per_image_weights(rng):
-    """Batched images with distinct per-image (w_s, w_cs) weights match
-    per-image single calls."""
-    a0, b0 = _float_pair(rng, 48, 64)
-    a1, b1 = _float_pair(rng, 48, 64)
-    ws = np.array([0.7, -0.3], np.float32)
-    ab, bb = np.stack([a0, a1]), np.stack([b0, b1])
-    da, db = ssim_grad_pallas(ab, bb, ws, 0.0, data_range=1.0, interpret=True)
-    da0, _ = ssim_grad_pallas(a0, b0, 0.7, 0.0, data_range=1.0, interpret=True)
-    da1, _ = ssim_grad_pallas(a1, b1, -0.3, 0.0, data_range=1.0, interpret=True)
-    np.testing.assert_allclose(np.asarray(da[0]), np.asarray(da0), atol=1e-7)
-    np.testing.assert_allclose(np.asarray(da[1]), np.asarray(da1), atol=1e-7)
+    g = np.asarray(jax.grad(lambda x: mean_cs(x, np.float32))(jnp.asarray(a)))
+    eps = 1e-4
+    with jax.enable_x64(True):
+        for (y, x) in [(0, 0), (20, 30), (39, 55)]:
+            ap, am = a.astype(np.float64), a.astype(np.float64)
+            ap[y, x] += eps
+            am[y, x] -= eps
+            fd = (float(mean_cs(jnp.asarray(ap), np.float64))
+                  - float(mean_cs(jnp.asarray(am), np.float64))) / (2 * eps)
+            assert g[y, x] == pytest.approx(fd, rel=2e-3, abs=1e-7)
 
 
-def test_grad_nan_input_poisons_gradients(rng):
-    """A NaN input pixel must surface in the gradients (the in-kernel
-    band sanitize may never hide bad input). Poisoning is per row-tile —
-    the whole tile_h-row tile containing the pixel goes NaN (a superset
-    of the XLA VJP's local NaN region); other tiles stay clean. Pinned
-    to tile_h=32 so the granularity assertion is tile-size-exact."""
-    a, b = _float_pair(rng, 48, 64)
-    a = a.copy()
-    a[10, 10] = np.nan
-    da, db = ssim_grad_pallas(a, b, 1.0, 0.0, data_range=1.0, interpret=True,
-                              tile_h=32)
-    da, db = np.asarray(da), np.asarray(db)
-    assert np.isnan(da[:32]).all() and np.isnan(db[:32]).all()
-    assert np.isfinite(da[32:]).all() and np.isfinite(db[32:]).all()
+def test_grad_batched_per_image_weights(rng, interpret_kernel):
+    """Per-image cotangents of a batched call land on their own images."""
+    ab, bb = _float_pair(rng, 24, 40, batch=2)
+    ws = jnp.asarray([0.7, -0.3])
+    da = jax.grad(lambda x: jnp.sum(
+        ws * ssim(x, bb, data_range=1.0, impl="pallas")))(ab)
+    for i in range(2):
+        di = jax.grad(lambda x: ws[i] * ssim(
+            x, bb[i], data_range=1.0, impl="pallas"))(ab[i])
+        np.testing.assert_allclose(np.asarray(da[i]), np.asarray(di),
+                                   atol=1e-7)
 
 
-def test_grad_rejects_unsupported(rng):
-    # Any width above the radius is supported since the column-chunked
-    # wide path (widths > GRAD_MAX_W split into overlapping windows).
-    assert grad_pallas_supported(64, GRAD_MAX_W + 128)
-    assert not grad_pallas_supported(64, 4)  # w <= radius
-    assert not grad_pallas_supported(64, 256, 17)  # beyond the fused bound
-    assert grad_pallas_supported(64, 256, 16)
-    a = np.zeros((8, 4), np.float32)
-    with pytest.raises(ValueError, match="needs"):
-        ssim_grad_pallas(a, a, 1.0, 0.0, interpret=True)
-    au = np.zeros((8, 64), np.uint8)
-    with pytest.raises(ValueError, match="float32"):
-        ssim_grad_pallas(au, au, 1.0, 0.0, interpret=True)
+def test_grad_nan_input_poisons_gradients(rng, interpret_kernel):
+    a, b = _float_pair(rng, 24, 32)
+    a[5, 7] = np.nan
+    da, db = _grad(lambda x, y: ssim(x, y, data_range=1.0, impl="pallas"),
+                   a, b)
+    assert np.isnan(np.asarray(da)).any() and np.isnan(np.asarray(db)).any()
+
+
+def test_grad_rejects_unsupported(rng, interpret_kernel):
+    """u8 inputs have no gradient: jax.grad refuses integer inputs on the
+    kernel route like on the XLA route."""
+    a8, b8 = random_pair(rng, 16, 16)
+    for impl in ("pallas", "xla"):
+        with pytest.raises(TypeError):
+            jax.grad(lambda x: ssim(x, b8, impl=impl))(a8)
 
 
 @pytest.mark.parametrize("radius,sigma", [(1, 0.8), (3, 1.2), (8, 2.5),
                                           (16, 4.0)])
-def test_grad_custom_radius_matches_xla_vjp(rng, radius, sigma):
-    """The backward's halo geometry is built from the radius at trace
-    time (round-4; previously pinned to 5): the 2r-row input halos, the
-    r-row mid margins, and the (128+2r, 128) MXU tap matrix all follow
-    the window. Both cotangent channels, against the XLA formulation's
-    autodiff at the same window."""
-    h, w = 40, 72
-    a, b = _float_pair(rng, h, w)
-
-    def loss(x, y):
-        rs, _ = ssim_parts_xla(x, y, data_range=1.0, radius=radius,
-                               sigma=sigma)
-        return jnp.sum(rs)
-
-    ga_x, gb_x = jax.grad(loss, argnums=(0, 1))(a, b)
-    ga_p, gb_p = ssim_grad_pallas(a, b, 1.0, 0.0, data_range=1.0,
-                                  interpret=True, radius=radius, sigma=sigma)
-    # Gradient magnitude grows as the window narrows (~5x at r=1 vs
-    # r=5), so the f32 comparison tolerance scales with max |g|.
-    for p, x in ((ga_p, ga_x), (gb_p, gb_x)):
-        scale = max(1.0, float(np.max(np.abs(np.asarray(x)))))
-        np.testing.assert_allclose(np.asarray(p), np.asarray(x),
-                                   atol=3e-5 * scale)
+def test_grad_custom_radius_matches_xla_vjp(rng, radius, sigma,
+                                            interpret_kernel):
+    a, b = _float_pair(rng, 36, 44)
+    kw = dict(data_range=1.0, radius=radius, sigma=sigma)
+    gp = _grad(lambda x, y: ssim(x, y, impl="pallas", **kw), a, b)
+    gx = _grad(lambda x, y: ssim(x, y, impl="xla", **kw), a, b)
+    for p, x in zip(gp, gx):
+        np.testing.assert_allclose(np.asarray(p), np.asarray(x), atol=1e-7)
 
 
-def test_grad_custom_radius_wide_mxu(rng):
-    """Custom radius on the >= MXU_MIN_W unit-split branch (the widened
-    band and tap matrix are radius-sized)."""
-    a, b = _float_pair(rng, 24, 640)
-
-    def loss(x, y):
-        rs, _ = ssim_parts_xla(x, y, data_range=1.0, radius=7, sigma=2.0)
-        return jnp.sum(rs)
-
-    ga_x, gb_x = jax.grad(loss, argnums=(0, 1))(a, b)
-    ga_p, gb_p = ssim_grad_pallas(a, b, 1.0, 0.0, data_range=1.0,
-                                  interpret=True, radius=7, sigma=2.0)
-    np.testing.assert_allclose(np.asarray(ga_p), np.asarray(ga_x), atol=3e-5)
-    np.testing.assert_allclose(np.asarray(gb_p), np.asarray(gb_x), atol=3e-5)
+def test_grad_custom_radius_wide_mxu(rng, interpret_kernel):
+    """A wide image over several column tiles with a custom window."""
+    a, b = _float_pair(rng, 16, 300)
+    kw = dict(data_range=1.0, radius=7, sigma=2.0)
+    gp = jax.grad(lambda x: ssim_loss(x, b, impl="pallas", **kw))(a)
+    gx = jax.grad(lambda x: ssim_loss(x, b, impl="xla", **kw))(a)
+    np.testing.assert_allclose(np.asarray(gp), np.asarray(gx), atol=1e-7)
 
 
 def test_ssim_grad_end_to_end_custom_radius(rng):
-    """jax.grad(ssim(radius=8)) routes through the fused backward (not
-    the XLA VJP) and matches it."""
-    import ssim_tpu.ops.ssim_grad as grad_mod
-    from ssim_tpu import ssim
+    """jax.grad of ssim_loss with a custom radius, on the default route,
+    against f64 finite differences of the oracle at one pixel."""
+    from ssim_tpu import reference
 
-    a, b = _float_pair(rng, 38, 54)
-    gp = jax.grad(lambda x: ssim(x, b, impl="pallas", data_range=1.0,
-                                 radius=8, sigma=2.5))(a)
-    gx = jax.grad(lambda x: ssim(x, b, impl="xla", data_range=1.0,
-                                 radius=8, sigma=2.5))(a)
-    np.testing.assert_allclose(np.asarray(gp), np.asarray(gx), atol=2e-6)
-
-
-def test_ssim_loss_uses_pallas_backward(rng, monkeypatch):
-    """jax.grad(ssim_loss) on an eligible f32 pair routes through the
-    fused backward kernel, not the XLA VJP — and matches it."""
-    import ssim_tpu.ops.ssim_grad as grad_mod
-    from ssim_tpu import ssim_loss
-
-    calls = []
-    real = grad_mod.ssim_grad_pallas
-
-    def spy(*args, **kwargs):
-        calls.append(1)
-        return real(*args, **kwargs)
-
-    monkeypatch.setattr(grad_mod, "ssim_grad_pallas", spy)
-    # Unique geometry so the jit cache can't serve a pre-spy trace.
-    a, b = _float_pair(rng, 37, 53)
-    gp = jax.grad(lambda x: ssim_loss(x, b, impl="pallas"))(a)
-    assert calls, "fused backward kernel was not invoked"
-    gx = jax.grad(lambda x: ssim_loss(x, b, impl="xla"))(a)
-    np.testing.assert_allclose(np.asarray(gp), np.asarray(gx), atol=2e-6)
+    a, b = _float_pair(rng, 20, 24)
+    g = np.asarray(jax.grad(lambda x: ssim_loss(x, b, radius=3,
+                                                sigma=1.2))(a))
+    eps = 1e-4
+    ap, am = a.astype(np.float64), a.astype(np.float64)
+    ap[9, 11] += eps
+    am[9, 11] -= eps
+    kw = dict(data_range=1.0, radius=3, sigma=1.2)
+    sp, _ = reference.compute_ssim(ap, b.astype(np.float64), **kw)
+    sm, _ = reference.compute_ssim(am, b.astype(np.float64), **kw)
+    assert g[9, 11] == pytest.approx(-(sp - sm) / (2 * eps), rel=2e-3,
+                                     abs=1e-6)
 
 
-def test_ms_ssim_grad_pallas_matches_xla(rng):
-    from ssim_tpu.models import ms_ssim
-
-    h, w = 192, 176  # 5 scales, ragged at the coarser levels
-    a, b = _float_pair(rng, h, w)
-    gp = jax.grad(
-        lambda x: jnp.sum(ms_ssim(x, b, data_range=1.0, impl="pallas"))
-    )(a)
-    gx = jax.grad(
-        lambda x: jnp.sum(ms_ssim(x, b, data_range=1.0, impl="xla"))
-    )(a)
-    # The forwards differ by kernel-vs-XLA f32 roundoff and the pyramid
-    # multiplies five factors, so tolerance is looser than single-scale.
-    np.testing.assert_allclose(np.asarray(gp), np.asarray(gx), atol=5e-5)
+def _runs_kernel(fn, *args):
+    """Whether the traced program of fn(*args) contains a pallas_call."""
+    return "pallas_call" in str(jax.make_jaxpr(fn)(*args))
 
 
-def test_ms_ssim_grad_uses_pallas_backward(rng, monkeypatch):
-    import ssim_tpu.ops.ssim_grad as grad_mod
-    from ssim_tpu.models import ms_ssim
-
-    calls = []
-    real = grad_mod.ssim_grad_pallas
-
-    def spy(*args, **kwargs):
-        calls.append(1)
-        return real(*args, **kwargs)
-
-    monkeypatch.setattr(grad_mod, "ssim_grad_pallas", spy)
-    a, b = _float_pair(rng, 181, 197)  # unique geometry (fresh trace)
-    jax.grad(lambda x: jnp.sum(ms_ssim(x, b, data_range=1.0, impl="pallas")))(a)
-    assert len(calls) == 5, f"expected one backward call per scale, got {len(calls)}"
+def test_ssim_loss_uses_pallas_backward(rng, interpret_kernel):
+    """Under jax.grad the kernel route linearizes the XLA formulation:
+    the gradient program holds no kernel, the primal-only one does."""
+    a, b = _float_pair(rng, 26, 30)
+    assert not _runs_kernel(
+        jax.grad(lambda x: ssim_loss(x, b, impl="pallas")), a)
+    assert _runs_kernel(lambda x: ssim_loss(x, b, impl="pallas"), a)
 
 
-def test_grad_f64_finite_difference_spotcheck(rng):
+def test_ms_ssim_grad_pallas_matches_xla(rng, interpret_kernel):
+    a, b = _float_pair(rng, 176, 180)
+    gp = jax.grad(lambda x: ms_ssim(x, b, data_range=1.0, impl="pallas"))(a)
+    gx = jax.grad(lambda x: ms_ssim(x, b, data_range=1.0, impl="xla"))(a)
+    np.testing.assert_allclose(np.asarray(gp), np.asarray(gx), atol=1e-7)
+
+
+def test_ms_ssim_grad_uses_pallas_backward(rng, interpret_kernel):
+    """MS-SSIM runs the XLA pyramid on every impl, forward and backward:
+    no program holds the kernel."""
+    a, b = _float_pair(rng, 176, 184)
+    f = lambda x: ms_ssim(x, b, data_range=1.0, impl="pallas")
+    assert not _runs_kernel(jax.grad(f), a)
+    assert not _runs_kernel(f, a)
+
+
+def test_grad_f64_finite_difference_spotcheck(rng, interpret_kernel):
     """Independent ground truth: central finite differences of the f64
     oracle at a handful of pixels (catches a systematically-wrong-but-
     self-consistent pair of VJPs)."""
@@ -238,8 +196,8 @@ def test_grad_f64_finite_difference_spotcheck(rng):
 
     h, w = 24, 32
     a, b = _float_pair(rng, h, w)
-    da, _ = ssim_grad_pallas(a, b, 1.0, 0.0, data_range=1.0, interpret=True)
-    da = np.asarray(da)
+    da = np.asarray(jax.grad(
+        lambda x: ssim(x, b, data_range=1.0, impl="pallas"))(a)) * (h * w)
     eps = 1e-4
     for (y, x) in [(0, 0), (0, 31), (23, 0), (12, 16), (5, 30)]:
         ap = a.astype(np.float64).copy()
@@ -253,206 +211,101 @@ def test_grad_f64_finite_difference_spotcheck(rng):
 
 
 @pytest.mark.parametrize("h,w", [(48, 64), (33, 47), (40, 517)])
-def test_grad_map_cotangent_matches_xla_vjp(rng, h, w):
-    """Per-pixel map cotangents (the ssim_and_map backward) through the
-    kernel's g_map input vs the XLA autodiff VJP."""
+def test_grad_map_cotangent_matches_xla_vjp(rng, h, w, interpret_kernel):
+    """Per-pixel map cotangents (the ssim_and_map backward) on the kernel
+    route vs the XLA autodiff VJP."""
     a, b = _float_pair(rng, h, w)
     R = rng.normal(0, 1, (h, w)).astype(np.float32)
     alpha = 0.37
 
-    def loss(x, y):
-        rs, m = ssim_parts_xla(x, y, with_map=True, data_range=1.0)
-        return alpha * jnp.sum(rs) + jnp.sum(R * m)
+    def loss(impl):
+        def f(x, y):
+            s, m = ssim_and_map(x, y, data_range=1.0, impl=impl)
+            return alpha * s + jnp.sum(R * m)
+        return f
 
-    gx = jax.grad(loss, argnums=(0, 1))(a, b)
-    gp = ssim_grad_pallas(
-        a, b, alpha, 0.0, jnp.asarray(R), data_range=1.0, interpret=True
-    )
+    gp = jax.grad(loss("pallas"), argnums=(0, 1))(a, b)
+    gx = jax.grad(loss("xla"), argnums=(0, 1))(a, b)
     for p, x in zip(gp, gx):
-        np.testing.assert_allclose(np.asarray(p), np.asarray(x), atol=2e-5)
+        np.testing.assert_allclose(np.asarray(p), np.asarray(x), atol=1e-7)
 
 
-def test_ssim_and_map_grad_uses_pallas_backward(rng, monkeypatch):
-    """jax.grad through ssim_and_map (score AND map cotangents) routes
-    through the fused backward kernel and matches the XLA impl."""
-    import ssim_tpu.ops.ssim_grad as grad_mod
-    from ssim_tpu import ssim_and_map
-
-    calls = []
-    real = grad_mod.ssim_grad_pallas
-
-    def spy(*args, **kwargs):
-        calls.append(1)
-        return real(*args, **kwargs)
-
-    monkeypatch.setattr(grad_mod, "ssim_grad_pallas", spy)
-    a, b = _float_pair(rng, 39, 57)  # unique geometry (fresh trace)
-
-    def loss(x, impl):
-        score, m = ssim_and_map(x, b, data_range=1.0, impl=impl)
-        return score + jnp.sum(m * m)
-
-    gp = jax.grad(lambda x: loss(x, "pallas"))(a)
-    assert calls, "fused backward kernel was not invoked"
-    gx = jax.grad(lambda x: loss(x, "xla"))(a)
-    np.testing.assert_allclose(np.asarray(gp), np.asarray(gx), atol=2e-5)
+def test_ssim_and_map_grad_uses_pallas_backward(rng, interpret_kernel):
+    """ssim_and_map's gradient linearizes the XLA formulation (no kernel
+    in its program); its primal keeps the kernel."""
+    a, b = _float_pair(rng, 22, 26)
+    f = lambda x: jnp.sum(ssim_and_map(x, b, data_range=1.0,
+                                       impl="pallas")[1])
+    assert not _runs_kernel(jax.grad(f), a)
+    assert _runs_kernel(f, a)
 
 
-def test_grad_map_cotangent_batched(rng):
-    a0, b0 = _float_pair(rng, 48, 64)
-    a1, b1 = _float_pair(rng, 48, 64)
-    R = rng.normal(0, 1, (2, 48, 64)).astype(np.float32)
-    ab, bb = np.stack([a0, a1]), np.stack([b0, b1])
-    da, db = ssim_grad_pallas(
-        ab, bb, 0.0, 0.0, jnp.asarray(R), data_range=1.0, interpret=True
-    )
-    da0, _ = ssim_grad_pallas(
-        a0, b0, 0.0, 0.0, jnp.asarray(R[0]), data_range=1.0, interpret=True
-    )
-    da1, _ = ssim_grad_pallas(
-        a1, b1, 0.0, 0.0, jnp.asarray(R[1]), data_range=1.0, interpret=True
-    )
-    np.testing.assert_allclose(np.asarray(da[0]), np.asarray(da0), atol=1e-7)
-    np.testing.assert_allclose(np.asarray(da[1]), np.asarray(da1), atol=1e-7)
+def test_grad_map_cotangent_batched(rng, interpret_kernel):
+    ab, bb = _float_pair(rng, 20, 28, batch=2)
+    R = rng.normal(0, 1, ab.shape).astype(np.float32)
+    da = jax.grad(lambda x: jnp.sum(
+        R * ssim_and_map(x, bb, data_range=1.0, impl="pallas")[1]))(ab)
+    for i in range(2):
+        di = jax.grad(lambda x: jnp.sum(
+            R[i] * ssim_and_map(x, bb[i], data_range=1.0, impl="pallas")[1]
+        ))(ab[i])
+        np.testing.assert_allclose(np.asarray(da[i]), np.asarray(di),
+                                   atol=1e-7)
 
 
-def test_grad_tile_h_variants_agree(rng):
-    """tile_h is a perf knob, never semantics: every valid height must
-    agree (up to f32 accumulation order in the band matmuls)."""
-    a, b = _float_pair(rng, 97, 640)
-    base, _ = ssim_grad_pallas(a, b, 1.0, 0.0, data_range=1.0, interpret=True)
-    for t in (16, 64, 128):
-        da, _ = ssim_grad_pallas(
-            a, b, 1.0, 0.0, data_range=1.0, interpret=True, tile_h=t
-        )
-        np.testing.assert_allclose(
-            np.asarray(da), np.asarray(base), atol=1e-5
-        )
-    with pytest.raises(ValueError, match="tile_h"):
-        ssim_grad_pallas(a, b, 1.0, 0.0, interpret=True, tile_h=12)
+def test_grad_tile_h_variants_agree(rng, interpret_kernel):
+    """Heights around the kernel's row tile (one short, exact, one over)
+    differentiate like the XLA route."""
+    from ssim_tpu.ops.ssim_pallas import TILE_H
+
+    for h in (TILE_H - 1, TILE_H, TILE_H + 1):
+        a, b = _float_pair(rng, h, 20)
+        gp = jax.grad(lambda x: ssim(x, b, data_range=1.0, impl="pallas"))(a)
+        gx = jax.grad(lambda x: ssim(x, b, data_range=1.0, impl="xla"))(a)
+        np.testing.assert_allclose(np.asarray(gp), np.asarray(gx), atol=1e-7)
 
 
-def test_grad_relaxed_tier(rng):
-    """relaxed=True (3-pass bf16-split MXU blurs in the backward) stays
-    within the loose-tier envelope of the standard-accuracy gradients on
-    wide images, and is a no-op below MXU_MIN_W (all-VPU roll mode).
-
-    The wide-image comparison runs compiled on TPU / interpret on CPU
-    (the production routing): TPU-INTERPRET mode evaluates the split's
-    DEFAULT-precision bf16 dots much more loosely than compiled Mosaic
-    (~1e-2 vs ~2e-5 relative, measured) and is not a shipped path."""
-    from ssim_tpu.dispatch import backend_platform
-    from ssim_tpu.ops.ssim_pallas import MXU_MIN_W
-
-    interpret = backend_platform() != "tpu"
-    a, b = _float_pair(rng, 64, 640)
-    assert a.shape[-1] >= MXU_MIN_W
-    da0, db0 = ssim_grad_pallas(a, b, 1.0, 0.3, data_range=1.0,
-                                interpret=interpret)
-    da1, db1 = ssim_grad_pallas(a, b, 1.0, 0.3, data_range=1.0,
-                                interpret=interpret, relaxed=True)
-    scale = float(np.abs(np.asarray(da0)).max())
-    for g0, g1 in ((da0, da1), (db0, db1)):
-        err = float(np.abs(np.asarray(g1) - np.asarray(g0)).max())
-        assert err <= 1e-3 * scale, (err, scale)
-
-    an, bn = _float_pair(rng, 40, 200)  # below MXU_MIN_W: same kernel
-    assert an.shape[-1] < MXU_MIN_W
-    g0, _ = ssim_grad_pallas(an, bn, 1.0, 0.0, data_range=1.0,
-                             interpret=True)
-    g1, _ = ssim_grad_pallas(an, bn, 1.0, 0.0, data_range=1.0,
-                             interpret=True, relaxed=True)
+def test_grad_relaxed_tier(rng, interpret_kernel):
+    """accuracy="relaxed" computes at standard accuracy, gradients
+    included."""
+    a, b = _float_pair(rng, 30, 40)
+    g0 = jax.grad(lambda x: ssim_loss(x, b, impl="pallas"))(a)
+    g1 = jax.grad(lambda x: ssim_loss(x, b, impl="pallas",
+                                      accuracy="relaxed"))(a)
     np.testing.assert_array_equal(np.asarray(g0), np.asarray(g1))
-
-    # accuracy="relaxed" is end-to-end: jax.grad(ssim_loss) routes the
-    # loose tier into the backward kernel through the custom VJP.
-    import jax
-    import jax.numpy as jnp
-
-    from ssim_tpu.api import ssim_loss
-
-    ga0 = jax.grad(lambda x: jnp.sum(
-        ssim_loss(x, b, data_range=1.0, impl="pallas")))(jnp.asarray(a))
-    ga1 = jax.grad(lambda x: jnp.sum(
-        ssim_loss(x, b, data_range=1.0, impl="pallas",
-                  accuracy="relaxed")))(jnp.asarray(a))
-    d = float(jnp.abs(ga1 - ga0).max())
-    s = float(jnp.abs(ga0).max())
-    assert 0.0 < d <= 1e-3 * s, (d, s)  # differs (tier active), loosely
 
 
 @pytest.mark.parametrize("data_range", [255.0, 1e4])
-def test_grad_data_range_scaling(rng, data_range):
-    """The backward kernel must track the XLA VJP at u8-scale and HDR
-    data ranges (c1/c2 scale quartically; the partials' cancellation
-    structure changes with range)."""
+def test_grad_data_range_scaling(rng, data_range, interpret_kernel):
+    """u8-scale and HDR data ranges (c1/c2 scale quartically)."""
     a = (rng.random((48, 64)) * data_range).astype(np.float32)
     b = np.clip(
         a + rng.normal(0, 0.05 * data_range, a.shape).astype(np.float32),
         0, data_range,
     )
-    gx = jax.grad(
-        lambda x, y: jnp.sum(
-            ssim_parts_xla(x, y, with_map=False, data_range=data_range)[0]
-        ),
-        argnums=(0, 1),
-    )(a, b)
-    gp = ssim_grad_pallas(
-        a, b, 1.0, 0.0, data_range=data_range, interpret=True
-    )
+    kw = dict(data_range=data_range)
+    gp = _grad(lambda x, y: ssim(x, y, impl="pallas", **kw), a, b)
+    gx = _grad(lambda x, y: ssim(x, y, impl="xla", **kw), a, b)
     scale = float(np.abs(np.asarray(gx[0])).max()) + 1e-30
     for p, x in zip(gp, gx):
-        np.testing.assert_allclose(
-            np.asarray(p), np.asarray(x), atol=3e-5 * max(1.0, scale)
-        )
+        np.testing.assert_allclose(np.asarray(p), np.asarray(x),
+                                   atol=1e-6 * scale)
 
 
-def test_grad_wide_column_chunked(rng):
-    """Widths beyond GRAD_MAX_W column-chunk into overlapping windows;
-    the stitched gradients must be exact up to f32 blur rounding.
-    Validated two ways: (a) a forced small chunk width against the
-    unchunked call — NOT bitwise: the kernel's MXU lane chunking is
-    window-width-relative, so summation order shifts by ~1 ulp per blur
-    (measured max 4.8e-7); the windows feed on identical halo content,
-    so anything beyond ulp noise is a stitching bug — and (b) a
-    genuinely wide image against the XLA autodiff VJP."""
-    import jax
-    import jax.numpy as jnp
+@pytest.mark.parametrize("dtype", [jnp.float16, jnp.bfloat16])
+def test_grad_low_precision_inputs(rng, dtype, interpret_kernel):
+    """f16/bf16 inputs ride the kernel route; gradients come back in the
+    input dtype, finite."""
+    a, b = _float_pair(rng, 24, 30)
+    a, b = jnp.asarray(a, dtype), jnp.asarray(b, dtype)
+    g = jax.grad(lambda x: ssim_loss(x, b, impl="pallas"))(a)
+    assert g.dtype == dtype
+    assert bool(jnp.isfinite(g.astype(jnp.float32)).all())
 
-    import ssim_tpu.ops.ssim_grad as sg
-    from ssim_tpu.ops.ssim_xla import ssim_parts_xla
 
-    a, b = _float_pair(rng, 24, 3000)
-    want_da, want_db = ssim_grad_pallas(
-        a, b, 1.0, 0.25, data_range=1.0, interpret=True
-    )
-    want_da, want_db = np.asarray(want_da), np.asarray(want_db)
-    old = sg.GRAD_MAX_W
-    sg.GRAD_MAX_W = 1200  # chunk_w derives from it (owned + 4r window)
-    try:
-        # The patched globals are read at TRACE time; the first call's
-        # jit cache entry (same shapes + statics) would otherwise be
-        # reused and the chunked path never run (a review caught this
-        # check passing vacuously).
-        jax.clear_caches()
-        da, db = ssim_grad_pallas(
-            a, b, 1.0, 0.25, data_range=1.0, interpret=True
-        )
-        tol = 2e-6 * max(1.0, float(np.abs(want_da).max()))
-        np.testing.assert_allclose(np.asarray(da), want_da, atol=tol)
-        np.testing.assert_allclose(np.asarray(db), want_db, atol=tol)
-    finally:
-        sg.GRAD_MAX_W = old
-        jax.clear_caches()  # drop the patched-globals trace too
-
-    aw, bw = _float_pair(rng, 16, 8000)  # > GRAD_MAX_W: real chunking
-    assert grad_pallas_supported(16, 8000)
-    da, db = ssim_grad_pallas(aw, bw, 1.0, 0.0, data_range=1.0,
-                              interpret=True)
-    ga, gb = jax.grad(
-        lambda x, y: jnp.sum(ssim_parts_xla(x, y, data_range=1.0)[0]),
-        argnums=(0, 1),
-    )(jnp.asarray(aw), jnp.asarray(bw))
-    scale = float(jnp.abs(ga).max())
-    assert float(jnp.abs(da - ga).max()) <= 3e-5 * scale
-    assert float(jnp.abs(db - gb).max()) <= 3e-5 * scale
+def test_grad_wide_column_chunked(rng, interpret_kernel):
+    """A width over many of the kernel's column tiles, jitted."""
+    a, b = _float_pair(rng, 12, 1100)
+    gp = jax.jit(jax.grad(lambda x: ssim_loss(x, b, impl="pallas")))(a)
+    gx = jax.grad(lambda x: ssim_loss(x, b, impl="xla"))(a)
+    np.testing.assert_allclose(np.asarray(gp), np.asarray(gx), atol=1e-7)

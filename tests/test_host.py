@@ -134,6 +134,7 @@ print("OK")
     assert r.returncode == 0 and "OK" in r.stdout, r.stderr[-2000:]
 
 
+@pytest.mark.slow  # a wall-clock ratio; it cannot hold beside other workers
 def test_host_thread_scaling(rng):
     """OpenMP thread SCALING of the native host backend — the
     reference's headline table is 1T -> 8T scaling on its own machine

@@ -4,7 +4,7 @@ Two coordinated JAX processes, each with 4 virtual CPU devices, form a
 global 8-device mesh and run the sharded mean-SSIM; the result must
 match the single-process computation. This exercises the real
 `jax.distributed` wiring (coordination service + cross-process
-collectives) that a TPU pod uses over DCN — the strongest multi-host
+collectives) that a multi-host cluster uses — the strongest multi-host
 evidence available on a single machine (SURVEY §4.8's simulation
 strategy, one level up from virtual devices).
 """
@@ -68,7 +68,6 @@ def _run_two_process(worker_src):
     env = dict(os.environ)
     env["JAX_PLATFORMS"] = "cpu"
     env["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
-    env.pop("SSIM_TPU_TEST_TPU", None)
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
     procs = [
@@ -125,11 +124,31 @@ def test_two_process_mean_ssim(tmp_path):
     assert results[0] == pytest.approx(float(np.mean(scores)), abs=1e-6)
 
 
-_WORKER_PALLAS_BATCH = _WORKER.replace('impl="xla"', 'impl="pallas"')
+# What the interpret_kernel fixture (conftest.py) does, for the worker
+# processes: impl="pallas" available on the CPU, the fused kernel run by
+# the Pallas interpreter.
+_INTERPRET_KERNEL = """
+import functools
+from ssim_tpu import dispatch
+import ssim_tpu.ops.ssim_pallas as _kernel
+dispatch.backend_platform = lambda: "gpu"
+_kernel.ssim_parts_pallas = functools.partial(_kernel.ssim_parts_pallas,
+                                              interpret=True)
+"""
+_PLATFORM_LINE = 'jax.config.update("jax_platforms", "cpu")\n'
 
 
-def test_two_process_mean_ssim_fused_kernel():
-    """The FUSED kernel (interpret-mode Pallas on CPU) under real
+def _with_interpret_kernel(worker_src):
+    return worker_src.replace(_PLATFORM_LINE,
+                              _PLATFORM_LINE + _INTERPRET_KERNEL, 1)
+
+
+_WORKER_PALLAS_BATCH = _with_interpret_kernel(
+    _WORKER.replace('impl="xla"', 'impl="pallas"'))
+
+
+def test_two_process_mean_ssim_fused_kernel(interpret_kernel):
+    """The fused kernel (the Pallas interpreter on the CPU) under real
     cross-process collectives: shard_map + psum spanning two processes,
     with the kernel running per-shard."""
     results = _run_two_process(_WORKER_PALLAS_BATCH)
@@ -191,12 +210,15 @@ print(f"RESULT {pid} {got!r}", flush=True)
 
 
 @pytest.mark.parametrize("impl", ["xla", "pallas"])
-def test_two_process_spatial_sharded(impl):
+def test_two_process_spatial_sharded(impl, request):
     """Row-sharded single-image SSIM across two processes: the halo
     ppermute at the mid-image shard boundary crosses processes. Both the
-    XLA path and the fused kernel (interpret mode) must agree with the
-    single-process score."""
+    XLA path and the fused kernel (the Pallas interpreter) must agree
+    with the single-process score."""
     worker = _WORKER_SPATIAL.replace("IMPL_PLACEHOLDER", impl)
+    if impl == "pallas":
+        request.getfixturevalue("interpret_kernel")
+        worker = _with_interpret_kernel(worker)
     results = _run_two_process(worker)
     assert results[0] == pytest.approx(results[1], abs=1e-7)
 

@@ -1,8 +1,11 @@
-"""Differential tests: fused Pallas kernel vs the f64 oracle.
+"""Differential tests: the fused GPU kernel (ops/ssim_pallas.py) vs the
+f64 oracle and the XLA formulation.
 
-On the CPU test backend the kernel runs in Pallas interpreter mode
-(numerics identical to TPU modulo instruction scheduling); the TPU
-compile path is exercised by bench.py and __graft_entry__.py on hardware.
+On the CPU the kernel runs in the Pallas interpreter (interpret=True,
+passed to the kernel directly or through the `interpret_kernel` fixture,
+which also makes impl="pallas" available to the engine and the jittable
+APIs). The compiled kernel is exercised on the card by chip_smoke.py and
+by the tests marked `gpu` at the end of this file.
 """
 
 import os
@@ -10,30 +13,69 @@ import os
 import numpy as np
 import pytest
 
-from ssim_tpu import compute_ssim, reference
+import jax.numpy as jnp
+
+from ssim_tpu import compute_ssim, engine, reference
+from ssim_tpu.ops.ssim_pallas import TILE_H, TILE_W, ssim_parts_pallas
 from ssim_tpu.testing import frozen
 from ssim_tpu.utils import load_image
 
 from conftest import random_pair
 
 
-def _check(a, b):
-    want, want_map = reference.compute_ssim(a, b, with_map=True)
-    got, got_map = compute_ssim(a, b, with_map=True, impl="pallas")
+def _parts(a, b, **kw):
+    kw.setdefault("interpret", True)
+    return ssim_parts_pallas(jnp.asarray(a), jnp.asarray(b), **kw)
+
+
+def _check(a, b, data_range=255.0, **window):
+    """Kernel score and map against the oracle at the f32 tiers."""
+    want, want_map = reference.compute_ssim(
+        a, b, with_map=True, data_range=data_range, **window)
+    p, m = _parts(a, b, with_map=True, data_range=data_range, **window)
     npix = a.shape[-1] * a.shape[-2]
+    got = engine.finalize_mean(np.asarray(p), npix)
     tol = max(frozen.GLOBAL_TOLERANCE_F32, 2e-3 / npix**0.5)
-    assert abs(got - want) < tol, (got, want, tol)
-    assert got_map.shape == want_map.shape
-    assert np.abs(got_map - want_map).max() < frozen.PIXEL_TOLERANCE_F32
+    assert np.abs(got - want).max() < tol, (got, want, tol)
+    assert m.shape == want_map.shape
+    assert np.abs(np.asarray(m) - want_map).max() < frozen.PIXEL_TOLERANCE_F32
 
 
+# Partial row and column tiles on both sides of the 64 x 128 tile, exact
+# tiles, single pixels, tall and wide strips.
 @pytest.mark.parametrize(
     "shape",
-    [(1, 1), (9, 13), (63, 255), (65, 257), (112, 128), (113, 129), (200, 300)],
+    [(1, 1), (9, 13), (63, 255), (65, 257), (255, 63), (257, 65),
+     (112, 128), (113, 129), (200, 300), (64, 128), (1, 300), (300, 1)],
 )
 def test_odd_shapes_vs_oracle(rng, shape):
     a, b = random_pair(rng, *shape)
     _check(a, b)
+
+
+@pytest.mark.parametrize("shape", [(2, 40, 72), (3, 17, 31), (2, 2, 9, 13)])
+def test_batched_shapes_vs_oracle(rng, shape):
+    """Leading batch dims (one program row per image) keep their shape
+    in the partials and the map."""
+    a = rng.integers(0, 256, shape, dtype=np.uint8)
+    b = np.clip(a + rng.normal(0, 12, shape), 0, 255).astype(np.uint8)
+    p, m = _parts(a, b, with_map=True)
+    assert p.shape[:-1] == shape[:-2] and m.shape == shape
+    want, want_map = reference.compute_ssim(
+        a.reshape((-1,) + shape[-2:]), b.reshape((-1,) + shape[-2:]),
+        with_map=True)
+    got = engine.finalize_mean(np.asarray(p), shape[-1] * shape[-2])
+    np.testing.assert_allclose(got.reshape(-1), want, atol=2e-6)
+    np.testing.assert_allclose(np.asarray(m).reshape(want_map.shape),
+                               want_map, atol=1e-5)
+
+
+def test_partials_layout(rng):
+    """One f32 partial per (row tile, column tile) program."""
+    a, b = random_pair(rng, 2 * TILE_H + 1, TILE_W + 1)
+    p, m = _parts(a, b)
+    assert m is None
+    assert p.dtype == jnp.float32 and p.shape == (3 * 2,)
 
 
 def test_einstein_vs_oracle(images_dir):
@@ -42,7 +84,7 @@ def test_einstein_vs_oracle(images_dir):
     _check(img, ref)
 
 
-def test_einstein_frozen_global(images_dir):
+def test_einstein_frozen_global(images_dir, interpret_kernel):
     ref = load_image(os.path.join(images_dir, "einstein.png"))
     for name, want in frozen.EINSTEIN_SUITE.items():
         img = load_image(os.path.join(images_dir, name))
@@ -50,11 +92,7 @@ def test_einstein_frozen_global(images_dir):
         assert abs(got - want) < frozen.GLOBAL_TOLERANCE_F32, (name, got, want)
 
 
-def test_batched_matches_single(rng):
-    # Small batches route through the lane-packed path, whose column-sum
-    # reduction order differs from the single-image tile sums — agreement
-    # is f32-roundoff (~1e-8), not bitwise (it was 1e-9 when both shapes
-    # ran the identical code path).
+def test_batched_matches_single(rng, interpret_kernel):
     pairs = [random_pair(rng, 60, 90) for _ in range(2)]
     a = np.stack([p[0] for p in pairs])
     b = np.stack([p[1] for p in pairs])
@@ -64,8 +102,8 @@ def test_batched_matches_single(rng):
         assert scores[i] == pytest.approx(single, abs=1e-7)
 
 
-def test_pallas_matches_xla(rng):
-    """The two optimized paths must agree to f32-roundoff levels."""
+def test_pallas_matches_xla(rng, interpret_kernel):
+    """The kernel and the XLA formulation agree to f32 roundoff."""
     a, b = random_pair(rng, 150, 220)
     gx, mx = compute_ssim(a, b, with_map=True, impl="xla")
     gp, mp = compute_ssim(a, b, with_map=True, impl="pallas")
@@ -73,601 +111,228 @@ def test_pallas_matches_xla(rng):
     assert np.abs(mp - mx).max() < 5e-4
 
 
-def test_wide_image_fast_path(rng):
-    """4-9K-wide images ride the widened zero-copy fast path by default
-    (round-4: the gate moved from 4096 to 16384 lanes — measured 14.6 vs
-    the chunked path's 12.4 Gpix/s at 8K on v5e)."""
-    a, b = random_pair(rng, 40, 4500)
-    _check(a, b)
-
-
-def test_wide_image_chunked_path(rng):
-    """Images wider than TILE_W take the chunked-overlap 2-D grid path;
-    forced via the config gate now that the default gate sits at 16384
-    (CI-sized widths would otherwise ride the fast path)."""
-    from conftest import force_chunked
-
-    a, b = random_pair(rng, 40, 4500)
-    with force_chunked():
-        _check(a, b)
-
-
-def test_wide_image_chunk_multiple(rng):
-    """Chunked path with w an exact multiple of the chunk width."""
-    from conftest import force_chunked
-
-    a, b = random_pair(rng, 40, 6144)
-    with force_chunked():
-        _check(a, b)
-
-
 def test_map_on_nonmultiple_width(rng):
-    """Overlap path with w not a multiple of 128 (map zero-fill branch)."""
+    """w not a multiple of the tile width: masked stores in the last
+    column tile."""
     a, b = random_pair(rng, 70, 300)
     _check(a, b)
 
 
 def test_4k_geometry(rng):
-    """4K width stays on the overlap fast path (VMEM-validated on TPU);
-    differential check at a reduced height for CI speed."""
-    a, b = random_pair(rng, 64, 3840)
+    """4K width (30 column tiles) at a reduced height for CI speed."""
+    a, b = random_pair(rng, 16, 3840)
     _check(a, b)
 
 
 @pytest.mark.parametrize("seed", range(6))
 def test_fuzz_geometry(seed):
-    """Randomized geometry fuzz: fused kernel vs oracle on random sizes
-    (both fast and banded paths, odd dims, tiny and tall shapes)."""
+    """Randomized geometry: kernel vs oracle on random sizes (odd dims,
+    tiny and tall shapes)."""
     r = np.random.default_rng(1000 + seed)
-    h = int(r.integers(1, 400))
-    w = int(r.integers(1, 2300))
+    h = int(r.integers(1, 200))
+    w = int(r.integers(1, 700))
     a = r.integers(0, 256, (h, w), dtype=np.uint8)
     noise = r.normal(0, 15, a.shape).astype(np.int32)
     b = np.clip(a.astype(np.int32) + noise, 0, 255).astype(np.uint8)
     _check(a, b)
 
 
-def test_float_input_fast_path_matches_oracle(rng):
-    """allow_float=True: float32 images ride the fused kernel (so TPU
-    users get the fused kernel's throughput). Extension beyond the
-    reference's u8 contract."""
-    from ssim_tpu.ops.ssim_pallas import ssim_parts_pallas
-
-    a = rng.random((67, 150)).astype(np.float32)
-    b = np.clip(a + rng.normal(0, 0.05, a.shape).astype(np.float32), 0, 1)
-    p, m = ssim_parts_pallas(a, b, with_map=True, data_range=1.0,
-                             interpret=True, allow_float=True)
-    want, want_map = reference.compute_ssim(a, b, with_map=True, data_range=1.0)
+@pytest.mark.parametrize(
+    "dtype,data_range",
+    [(np.float32, 1.0), (np.float16, 1.0), (jnp.bfloat16, 1.0),
+     (np.uint16, 65535.0), (np.float32, 255.0)],
+)
+def test_float_input_fast_path_matches_oracle(rng, dtype, data_range):
+    """Every dtype the routing sends to the kernel is loaded natively and
+    converted to f32 in registers."""
+    a8, b8 = random_pair(rng, 37, 150)
+    scale = data_range / 255.0
+    a = (a8 * scale).astype(dtype)
+    b = (b8 * scale).astype(dtype)
+    want, want_map = reference.compute_ssim(
+        np.asarray(a, np.float64), np.asarray(b, np.float64),
+        with_map=True, data_range=data_range)
+    p, m = _parts(a, b, with_map=True, data_range=data_range)
     got = float(np.asarray(p, np.float64).sum() / a.size)
-    assert abs(got - want) < 1e-6
-    assert np.abs(np.asarray(m) - want_map).max() < 5e-6
+    assert abs(got - want) < 2e-6
+    assert np.abs(np.asarray(m) - want_map).max() < 1e-5
 
 
 def test_float_negative_values_preserved(rng):
-    """The float band clip must only kill garbage — legitimate negative
-    pixel values (allowed by the float extension) survive."""
-    from ssim_tpu.ops.ssim_pallas import ssim_parts_pallas
-
+    """Negative float pixels are data, not garbage."""
     a = (rng.random((40, 64)).astype(np.float32) - 0.3) * 2.0
     b = a + rng.normal(0, 0.05, a.shape).astype(np.float32)
-    p, _ = ssim_parts_pallas(a, b, data_range=2.0, interpret=True,
-                             allow_float=True)
+    p, _ = _parts(a, b, data_range=2.0)
     want, _ = reference.compute_ssim(a, b, data_range=2.0)
     got = float(np.asarray(p, np.float64).sum() / a.size)
     assert abs(got - want) < 1e-6
 
 
-def test_engine_routes_float_and_u16_to_pallas(rng):
-    """engine.compute with impl='pallas' sends float32 and uint16 images
-    through the fused kernel's float path (values exact as f32), not the
-    slow XLA fallback."""
-    from ssim_tpu import engine
+def test_engine_routes_float_and_u16_to_pallas(rng, interpret_kernel,
+                                               monkeypatch):
+    """engine.compute on impl='pallas' sends u8, u16 and float pairs to
+    the kernel and mixed pairs to XLA."""
+    import ssim_tpu.ops.ssim_pallas as kernel
 
-    af = rng.random((48, 64)).astype(np.float32)
-    bf = np.clip(af + rng.normal(0, 0.05, af.shape).astype(np.float32), 0, 1)
-    got, _ = engine.compute(af, bf, impl="pallas", data_range=1.0)
-    want, _ = reference.compute_ssim(af, bf, data_range=1.0)
-    assert abs(float(got) - want) < 1e-6
-
-    a16 = rng.integers(0, 65536, (48, 64), dtype=np.uint16)
-    b16 = np.clip(a16.astype(np.int32) + rng.normal(0, 2000, a16.shape).astype(np.int32),
-                  0, 65535).astype(np.uint16)
-    got, _ = engine.compute(a16, b16, impl="pallas", data_range=65535.0)
-    want, _ = reference.compute_ssim(a16, b16, data_range=65535.0)
-    assert abs(float(got) - want) < 2e-5
-
-
-def test_float_wide_chunked_path(rng):
-    """float32 images wider than one tile use the chunked path over an
-    f32 padded layout (dtype-generic pad kernel)."""
-    from ssim_tpu.ops.ssim_pallas import ssim_parts_pallas
-
-    a = rng.random((96, 4500)).astype(np.float32)
-    b = np.clip(a + rng.normal(0, 0.05, a.shape).astype(np.float32), 0, 1)
-    p, m = ssim_parts_pallas(a, b, with_map=True, data_range=1.0,
-                             interpret=True, allow_float=True,
-                             max_tile_w=4096)
-    want, want_map = reference.compute_ssim(a, b, with_map=True, data_range=1.0)
-    got = float(np.asarray(p, np.float64).sum() / a.size)
-    assert abs(got - want) < 1e-6
-    assert np.abs(np.asarray(m) - want_map).max() < 5e-6
+    calls = []
+    real = kernel.ssim_parts_pallas
+    monkeypatch.setattr(kernel, "ssim_parts_pallas",
+                        lambda *a, **k: calls.append(1) or real(*a, **k))
+    a8, b8 = random_pair(rng, 20, 30)
+    for a, b, dr in ((a8, b8, 255.0),
+                     (a8.astype(np.uint16), b8.astype(np.uint16), 255.0),
+                     (a8 / 255.0, b8 / 255.0, 1.0)):
+        n = len(calls)
+        got = compute_ssim(a, b, impl="pallas", data_range=dr)
+        assert len(calls) == n + 1
+        want, _ = reference.compute_ssim(a, b, data_range=dr)
+        assert got == pytest.approx(want, abs=2e-6)
+    n = len(calls)
+    compute_ssim(a8, b8.astype(np.float32), impl="pallas")
+    assert len(calls) == n
 
 
-def test_engine_wide_float_chunked(rng):
-    """Wide float32 via engine, BOTH wide routes (interpret on CPU,
-    COMPILED on the TPU suite — validates the f32 wide fast path's and
-    the chunked path's VMEM budgets on hardware)."""
-    from conftest import force_chunked
-    from ssim_tpu import engine
-
-    a = rng.random((96, 9000)).astype(np.float32)
-    b = np.clip(a + rng.normal(0, 0.05, a.shape).astype(np.float32), 0, 1)
-    got, _ = engine.compute(a, b, impl="pallas", data_range=1.0)
-    want, _ = reference.compute_ssim(a, b, data_range=1.0)
-    assert abs(float(got) - want) < 1e-6
-    with force_chunked():
-        got_c, _ = engine.compute(a, b, impl="pallas", data_range=1.0)
-    assert abs(float(got_c) - want) < 1e-6
-
-
-@pytest.mark.parametrize("seed", range(9))
+@pytest.mark.parametrize("seed", range(6))
 def test_fuzz_float_and_precise_paths(seed):
-    """Randomized geometry/dtype/data_range fuzz over the float and
-    precise kernel modes vs the f64 oracle; seeds >= 6 force wide
-    geometries, run BOTH ways — the (now default) wide fast path and the
-    forced chunked path — so each keeps coverage in every mode."""
-    from conftest import force_chunked
-
-    r = np.random.default_rng(7000 + seed)
-    h = int(r.integers(1, 220))
-    w = int(r.integers(1, 2200)) if seed < 6 else int(r.integers(4300, 7000))
-    mode = seed % 3
-    tile_kws = [{}] if seed < 6 else [{}, {"max_tile_w": 4096}]
-    if mode == 0:  # float32, arbitrary data_range (exercises the clip bound)
-        dr = float(r.choice([1.0, 255.0, 1e4, 1e6]))
-        a = (r.random((h, w)) * dr).astype(np.float32)
-        b = np.clip(a + (r.normal(0, 0.04 * dr, a.shape)).astype(np.float32), 0, dr)
-        from ssim_tpu.ops.ssim_pallas import ssim_parts_pallas
-
-        want, want_map = reference.compute_ssim(a, b, with_map=True, data_range=dr)
-        for kw in tile_kws:
-            p, m = ssim_parts_pallas(a, b, with_map=True, data_range=dr,
-                                     interpret=True, allow_float=True, **kw)
-            got = float(np.asarray(p, np.float64).sum() / a.size)
-            assert abs(got - want) < 5e-6
-            assert np.abs(np.asarray(m) - want_map).max() < 5e-5
-    elif mode == 1:  # uint16 through the engine routing
-        from ssim_tpu import engine
-
-        a = r.integers(0, 65536, (h, w)).astype(np.uint16)
-        b = np.clip(a.astype(np.int32) + r.normal(0, 2500, a.shape).astype(np.int32),
-                    0, 65535).astype(np.uint16)
-        want, _ = reference.compute_ssim(a, b, data_range=65535.0)
-        for kw in tile_kws:
-            import contextlib
-
-            ctx = force_chunked() if kw else contextlib.nullcontext()
-            with ctx:
-                got, _ = engine.compute(a, b, impl="pallas", data_range=65535.0)
-            assert abs(float(got) - want) < 2e-5
-    else:  # precise mode, u8
-        from ssim_tpu.ops.ssim_pallas import ssim_parts_pallas
-
-        a = r.integers(0, 256, (h, w), dtype=np.uint8)
-        b = np.clip(a.astype(np.int32) + r.normal(0, 14, a.shape).astype(np.int32),
-                    0, 255).astype(np.uint8)
-        want, _ = reference.compute_ssim(a, b)
-        for kw in tile_kws:
-            p, _ = ssim_parts_pallas(a, b, interpret=True, precise=True, **kw)
-            got = float(np.asarray(p, np.float64).sum() / a.size)
-            assert abs(got - want) < 5e-9
+    """Randomized float geometry and data range against the oracle."""
+    r = np.random.default_rng(2000 + seed)
+    h = int(r.integers(1, 120))
+    w = int(r.integers(1, 400))
+    dr = float(r.choice([1.0, 255.0, 1e4]))
+    a = (r.random((h, w)) * dr).astype(np.float32)
+    b = np.clip(a + r.normal(0, 0.05 * dr, a.shape), 0, dr).astype(np.float32)
+    _check(a, b, data_range=dr)
 
 
-def test_pick_tile_h_rules():
-    """The adaptive fast-path tile height (measured on v5e; see
-    docs/RESULTS.md): padded-row minimization first, then the ~32k
-    tile-area preference, under the 131k-element VMEM budget."""
-    from ssim_tpu.ops.ssim_pallas import _pick_tile_h
+@pytest.mark.parametrize("radius,sigma", [(1, 0.8), (2, 1.0), (7, 2.5),
+                                          (11, 3.0), (16, 4.0)])
+def test_custom_radius_vs_oracle(rng, radius, sigma):
+    """The register ring holds 2r+1 rows for any radius up to
+    MAX_FUSED_RADIUS, including radii larger than small images."""
+    a, b = random_pair(rng, 30, 140)
+    _check(a, b, radius=radius, sigma=sigma)
 
-    assert _pick_tile_h(2160, 3840) == 32   # 4K: budget caps at 32
-    assert _pick_tile_h(1080, 1920) == 64   # 1080p: MXU mode prefers 64
-    assert _pick_tile_h(1080, 1920, float_input=True) == 32  # f32 budget
-    assert _pick_tile_h(512, 512) == 64   # MXU mode: 64, never 128
-    assert _pick_tile_h(360, 640) == 64     # small batched images go taller
-    assert _pick_tile_h(256, 256) == 128
-    assert _pick_tile_h(128, 128) == 128    # one tile per image
-    assert _pick_tile_h(64, 64) == 64
-    assert _pick_tile_h(135, 240) == 160    # tile taller than the image
-    assert _pick_tile_h(2160, 3840, precise=True) == 32  # halved budget
-    for h, w in [(1, 1), (17, 90), (4000, 4000)]:
-        t = _pick_tile_h(h, w)
-        assert t % 32 == 0 and 32 <= t <= 256
+
+@pytest.mark.parametrize("sigma,k1,k2", [(2.0, 0.02, 0.05), (0.7, 0.01, 0.03),
+                                         (1.5, 0.05, 0.01)])
+def test_custom_sigma_k1_k2_vs_oracle(rng, sigma, k1, k2):
+    a, b = random_pair(rng, 45, 90)
+    _check(a, b, sigma=sigma, k1=k1, k2=k2)
+
+
+@pytest.mark.parametrize("h,w,r,hs", [
+    (40, 72, 5, 30),     # band of one row tile
+    (150, 140, 5, 140),  # owned rows span three row tiles
+    (38, 200, 3, 32),    # narrower halo
+    (36, 90, 16, 4),     # owned rows thinner than the halo
+])
+def test_band_rows_match_full_image(rng, h, w, r, hs):
+    """row_offset/out_h (the spatial-sharding band mode): the owned rows
+    of a band that carries r real halo rows above and below equal those
+    rows of the full-image map."""
+    assert h >= hs + 2 * r
+    a, b = random_pair(rng, h, w)
+    _, full = _parts(a, b, with_map=True, radius=r)
+    top = (h - hs) // 2 - r
+    band = slice(top, top + hs + 2 * r)
+    p, m = _parts(a[band], b[band], with_map=True, radius=r, row_offset=r,
+                  out_h=hs)
+    want = np.asarray(full)[top + r: top + r + hs]
+    assert m.shape == (hs, w)
+    np.testing.assert_allclose(np.asarray(m), want, atol=1e-6)
+    assert float(np.asarray(p, np.float64).sum()) == pytest.approx(
+        float(want.astype(np.float64).sum()), abs=1e-3)
+
+
+@pytest.mark.parametrize("with_map", [False, True])
+@pytest.mark.parametrize("shape", [(64, 129), (65, 128), (2, 70, 250),
+                                   (130, 20), (5, 400), (3, 3, 3)])
+def test_kernel_matches_xla_parts(rng, shape, with_map):
+    """Kernel and XLA formulation agree on the score per image and on
+    the map, with and without the map output, over tile-edge geometries
+    and batches."""
+    from ssim_tpu.ops.ssim_xla import ssim_parts_xla
+
+    a = rng.integers(0, 256, shape, dtype=np.uint8)
+    b = np.clip(a + rng.normal(0, 12, shape), 0, 255).astype(np.uint8)
+    pk, mk = _parts(a, b, with_map=with_map)
+    px, mx = ssim_parts_xla(a, b, with_map=with_map)
+    npix = shape[-1] * shape[-2]
+    np.testing.assert_allclose(engine.finalize_mean(np.asarray(pk), npix),
+                               engine.finalize_mean(np.asarray(px), npix),
+                               atol=5e-7)
+    if with_map:
+        np.testing.assert_allclose(np.asarray(mk), np.asarray(mx), atol=5e-5)
+    else:
+        assert mk is None and mx is None
 
 
 def test_adaptive_tile_taller_than_image(rng):
-    """h < picked tile_h (nh == 1, ragged everything) must still match
-    the oracle, map included."""
-    from ssim_tpu import engine, reference
-    from ssim_tpu.ops.ssim_pallas import _pick_tile_h, ssim_parts_pallas
-
-    h, w = 135, 240
-    assert _pick_tile_h(h, w) > h
-    a, b = random_pair(rng, h, w)
-    parts, m = ssim_parts_pallas(a[None], b[None], with_map=True, interpret=True)
-    got = float(engine.finalize_mean(np.asarray(parts), h * w)[0])
-    want, wmap = reference.compute_ssim(a, b, with_map=True)
-    assert abs(got - want) < 2e-6
-    assert np.abs(np.asarray(m)[0] - wmap).max() < 1e-3
+    """Images shorter than one row tile and narrower than one column
+    tile: a single program whose halo rows are all clamped."""
+    a, b = random_pair(rng, 3, 5)
+    _check(a, b)
 
 
-def test_engine_4k_width_float_fast_path(rng):
-    """f32 images up to 4096 px wide take the FAST path under a raised
-    scoped-VMEM window since round 3 (previously they detoured through
-    the chunked path; measured 14.0 vs 7.7 Gpix/s at 4K). COMPILED on
-    the TPU suite — validates the raised window on hardware."""
-    from ssim_tpu import engine
-
-    a = rng.random((64, 3840)).astype(np.float32)
-    b = np.clip(a + rng.normal(0, 0.05, a.shape).astype(np.float32), 0, 1)
-    got, m = engine.compute(a, b, with_map=True, impl="pallas", data_range=1.0)
-    want, want_map = reference.compute_ssim(a, b, with_map=True, data_range=1.0)
-    assert abs(float(got) - want) < 1e-6
-    assert np.abs(np.asarray(m) - want_map).max() < 5e-6
+def test_kernel_validates_inputs():
+    """Shape and dtype mismatches are refused before tracing the kernel."""
+    with pytest.raises(ValueError, match="dtype"):
+        _parts(np.zeros((8, 8), np.uint8), np.zeros((8, 9), np.uint8))
+    with pytest.raises(ValueError, match="dtype"):
+        _parts(np.zeros((8, 8), np.int32), np.zeros((8, 8), np.int32))
 
 
-@pytest.mark.parametrize("mode", ["roll", "concat", "mxu"])
-def test_lane_mode_overrides_agree_with_oracle(rng, mode):
-    """Every exact lane mode (the SSIM_TPU_LANE_MODE override values)
-    must produce oracle-grade results at any width — modes are a perf
-    choice, never a semantics choice."""
-    import ssim_tpu.ops.ssim_pallas as sp
+# Compiled on the card (JAX_PLATFORMS=cuda python -m pytest tests/ -m gpu
+# -p no:xdist); skipped elsewhere.
 
-    old = sp._LANE_MODE
-    sp._LANE_MODE = mode
-    try:
-        # Unique geometry per mode so the jit cache can't serve a trace
-        # made under a different override.
-        h, w = 41 + len(mode), 580 + 7 * len(mode)
-        a, b = random_pair(rng, h, w)
-        p, m = sp.ssim_parts_pallas(a, b, with_map=True, interpret=True)
-    finally:
-        sp._LANE_MODE = old
-    want, want_map = reference.compute_ssim(a, b, with_map=True)
-    got = float(np.asarray(p, np.float64).sum() / (h * w))
-    assert abs(got - want) < 2e-6
-    assert np.abs(np.asarray(m) - want_map).max() < 1e-3
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(1, 1), (63, 255), (257, 65), (3, 200, 300)])
+def test_compiled_kernel_vs_oracle(rng, shape):
+    a = rng.integers(0, 256, shape, dtype=np.uint8)
+    b = np.clip(a + rng.normal(0, 12, shape), 0, 255).astype(np.uint8)
+    want, want_map = reference.compute_ssim(
+        a.reshape((-1,) + shape[-2:]), b.reshape((-1,) + shape[-2:]),
+        with_map=True)
+    p, m = _parts(a, b, with_map=True, interpret=False)
+    got = engine.finalize_mean(np.asarray(p), shape[-1] * shape[-2])
+    np.testing.assert_allclose(got.reshape(-1), want, atol=2e-6)
+    np.testing.assert_allclose(np.asarray(m).reshape(want_map.shape),
+                               want_map, atol=1e-5)
 
 
-def test_lane_mode_mxu3x_loose_tier(rng):
-    """The opt-in mxu3x mode trades accuracy for speed: its error is
-    bounded by the 2-term bf16 split (~2^-17 relative on the squared
-    signals). Check it stays inside a 1e-4 global / 5e-3 pixel envelope
-    (typical is far better; the strict f32 tier is NOT guaranteed)."""
-    import ssim_tpu.ops.ssim_pallas as sp
-
-    old = sp._LANE_MODE
-    sp._LANE_MODE = "mxu3x"
-    try:
-        a, b = random_pair(rng, 53, 601)  # unique geometry (fresh trace)
-        p, m = sp.ssim_parts_pallas(a, b, with_map=True, interpret=True)
-    finally:
-        sp._LANE_MODE = old
-    want, want_map = reference.compute_ssim(a, b, with_map=True)
-    got = float(np.asarray(p, np.float64).sum() / a.size)
-    assert abs(got - want) < 1e-4
-    assert np.abs(np.asarray(m)[5:-5, 5:-5] - want_map[5:-5, 5:-5]).max() < 5e-3
+@pytest.mark.gpu
+@pytest.mark.parametrize("radius", [1, 16])
+def test_compiled_kernel_radius_and_float(rng, radius):
+    a8, b8 = random_pair(rng, 70, 150)
+    a, b = a8 / np.float32(255), b8 / np.float32(255)
+    want, _ = reference.compute_ssim(a, b, data_range=1.0, radius=radius)
+    p, _ = _parts(a.astype(np.float32), b.astype(np.float32),
+                  data_range=1.0, radius=radius, interpret=False)
+    assert float(np.asarray(p, np.float64).sum() / a.size) == pytest.approx(
+        want, abs=2e-6)
 
 
-def test_relaxed_kwarg_loose_tier(rng):
-    """accuracy="relaxed" (the mxu3x tier as a first-class knob, no env
-    var): wide images stay inside the documented loose envelope and the
-    result is NOT required to hit the strict f32 tier."""
-    import ssim_tpu.ops.ssim_pallas as sp
-
-    a, b = random_pair(rng, 47, 613)
-    p, m = sp.ssim_parts_pallas(a, b, with_map=True, interpret=True,
-                                relaxed=True)
-    want, want_map = reference.compute_ssim(a, b, with_map=True)
-    got = float(np.asarray(p, np.float64).sum() / a.size)
-    assert abs(got - want) < 1e-4
-    assert np.abs(np.asarray(m)[5:-5, 5:-5] - want_map[5:-5, 5:-5]).max() < 5e-3
-
-
-def test_relaxed_noop_below_mxu_min_w(rng):
-    """Below MXU_MIN_W the relaxed tier never applies (roll/concat are
-    already optimal there): results are bit-identical to standard."""
-    import ssim_tpu.ops.ssim_pallas as sp
-
-    a, b = random_pair(rng, 33, 320)
-    p0, m0 = sp.ssim_parts_pallas(a, b, with_map=True, interpret=True)
-    p1, m1 = sp.ssim_parts_pallas(a, b, with_map=True, interpret=True,
-                                  relaxed=True)
-    assert np.array_equal(np.asarray(p0), np.asarray(p1))
-    assert np.array_equal(np.asarray(m0), np.asarray(m1))
+@pytest.mark.gpu
+@pytest.mark.parametrize(
+    "dtype,data_range",
+    [(np.uint16, 65535.0), (np.float16, 1.0), (jnp.bfloat16, 1.0)],
+)
+def test_compiled_kernel_native_dtypes(rng, dtype, data_range):
+    """The dtypes the routing sends to the kernel besides u8 and f32,
+    loaded natively by the compiled kernel."""
+    a8, b8 = random_pair(rng, 90, 200)
+    scale = data_range / 255.0
+    a, b = (a8 * scale).astype(dtype), (b8 * scale).astype(dtype)
+    want, _ = reference.compute_ssim(np.asarray(a, np.float64),
+                                     np.asarray(b, np.float64),
+                                     data_range=data_range)
+    p, _ = _parts(a, b, data_range=data_range, interpret=False)
+    assert float(np.asarray(p, np.float64).sum() / a.size) == pytest.approx(
+        want, abs=2e-6)
 
 
-def test_relaxed_precise_conflict(rng):
-    import ssim_tpu.ops.ssim_pallas as sp
+@pytest.mark.gpu
+def test_auto_picks_kernel_on_gpu():
+    from ssim_tpu.dispatch import Implementation, select_impl
 
-    a, b = random_pair(rng, 32, 640)
-    with pytest.raises(ValueError, match="relaxed"):
-        sp.ssim_parts_pallas(a, b, interpret=True, precise=True, relaxed=True)
-
-
-@pytest.mark.parametrize("h,w,batch", [(40, 72, None), (95, 300, 2),
-                                       (33, 129, None), (70, 4500, None)])
-def test_rowsum_mode_matches_map_rows(rng, h, w, batch):
-    """rowsum=True (round-4, for score-only spatial sharding): per-row
-    SSIM sums with NO map in HBM, matching f64 row sums of the map on
-    both the fast and chunked paths, odd geometries and batches included.
-    The kernel emits per-row (ssim - 1) partials and the host adds back
-    w — finer than f32-summing the map's w near-1.0 terms."""
-    import ssim_tpu.ops.ssim_pallas as sp
-
-    shape = (h, w) if batch is None else (batch, h, w)
-    a = rng.integers(0, 256, shape).astype(np.uint8)
-    b = rng.integers(0, 256, shape).astype(np.uint8)
-    _, smap = sp.ssim_parts_pallas(a, b, with_map=True, interpret=True)
-    want = np.asarray(smap, np.float64).sum(axis=-1)
-    # Wide shapes run both routes (the default wide fast path AND the
-    # forced chunked grid, whose rowsum sums per-lane-chunk partials).
-    for kw in ([{}] if w <= 4096 else [{}, {"max_tile_w": 4096}]):
-        rows, m = sp.ssim_parts_pallas(a, b, rowsum=True, interpret=True,
-                                       **kw)
-        assert m is None
-        got = np.asarray(rows)
-        assert got.shape == want.shape
-        # f32 row sums: tolerance scales with the summed magnitude ~w.
-        np.testing.assert_allclose(got, want, atol=3e-5 * w)
-
-
-def test_rowsum_mode_float_path(rng):
-    """rowsum on the sanitized float path, plus its NaN-input poison."""
-    import jax.numpy as jnp
-
-    import ssim_tpu.ops.ssim_pallas as sp
-
-    a = rng.random((50, 200), np.float32)
-    b = rng.random((50, 200), np.float32)
-    rows, _ = sp.ssim_parts_pallas(
-        jnp.asarray(a), jnp.asarray(b), rowsum=True, allow_float=True,
-        data_range=1.0, interpret=True,
-    )
-    _, smap = sp.ssim_parts_pallas(
-        jnp.asarray(a), jnp.asarray(b), with_map=True, allow_float=True,
-        data_range=1.0, interpret=True,
-    )
-    want = np.asarray(smap, np.float64).sum(axis=-1)
-    np.testing.assert_allclose(np.asarray(rows), want, atol=3e-5 * 200)
-
-    a[7, 3] = np.nan  # invalid input must poison the score, not vanish
-    rows_n, _ = sp.ssim_parts_pallas(
-        jnp.asarray(a), jnp.asarray(b), rowsum=True, allow_float=True,
-        data_range=1.0, interpret=True,
-    )
-    assert np.isnan(np.asarray(rows_n).sum())
-
-
-def test_rowsum_conflicts(rng):
-    import ssim_tpu.ops.ssim_pallas as sp
-
-    a, b = random_pair(rng, 32, 64)
-    with pytest.raises(ValueError, match="rowsum"):
-        sp.ssim_parts_pallas(a, b, rowsum=True, with_map=True,
-                             interpret=True)
-    with pytest.raises(ValueError, match="rowsum"):
-        sp.ssim_parts_pallas(a, b, rowsum=True, precise=True,
-                             interpret=True)
-
-
-def _vhalo_window(rng, h, w, r, batch=None, dtype=np.uint8):
-    """A random global image pair cut into (local window, vhalo operands,
-    halo-concatenated window) for the middle 3rd of the rows."""
-    lead = () if batch is None else (batch,)
-    A = rng.integers(0, 256, lead + (3 * h + 2 * r, w)).astype(dtype)
-    B = rng.integers(0, 256, lead + (3 * h + 2 * r, w)).astype(dtype)
-    a_loc, b_loc = A[..., h : 2 * h, :], B[..., h : 2 * h, :]
-    vh = (
-        A[..., h - r : h, :], A[..., 2 * h : 2 * h + r, :],
-        B[..., h - r : h, :], B[..., 2 * h : 2 * h + r, :],
-    )
-    ae = np.concatenate([vh[0], a_loc, vh[1]], axis=-2)
-    be = np.concatenate([vh[2], b_loc, vh[3]], axis=-2)
-    return a_loc, b_loc, vh, ae, be
-
-
-@pytest.mark.parametrize("h,w,r,tile_h,batch", [
-    (64, 256, 5, None, None),   # plain geometry
-    (66, 200, 5, 32, None),     # ragged last block thinner than radius:
-                                # the second-to-last block splices too
-    (68, 256, 5, 32, None),     # ...with a TRUNCATED bottom part
-                                # (last_rows > hb - r)
-    (33, 128, 16, None, None),  # radius == hb (empty top edge slice)
-    (40, 131, 3, None, 2),      # non-128-multiple lanes, batched
-])
-def test_vhalo_matches_concat_window(rng, h, w, r, tile_h, batch):
-    """vhalo halo operands (round 4, for spatial sharding): a row-window
-    computed with spliced neighbor rows must match the halo-concatenated
-    formulation (the spatial layer's old code path) on its local rows.
-    Not bitwise — the concat window's tile grid is offset by radius rows,
-    so f32 dot orders differ — but well inside the f32 accuracy tier.
-    This file runs interpret-mode; the compiled-on-TPU validation of the
-    same geometries against the f64 oracle is tools/hw_vhalo.py
-    (docs/RESULTS.md "vhalo on hardware", round 5 — which caught a
-    chunked-rowsum BlockSpec that only interpret mode accepted)."""
-    import ssim_tpu.ops.ssim_pallas as sp
-
-    a_loc, b_loc, vh, ae, be = _vhalo_window(rng, h, w, r, batch)
-    kw = dict(radius=r, interpret=True)
-    if tile_h is not None:
-        kw["max_tile_h"] = tile_h
-    rows_c, _ = sp.ssim_parts_pallas(ae, be, rowsum=True, **kw)
-    want_rows = np.asarray(rows_c)[..., r : r + h]
-    rows_v, m = sp.ssim_parts_pallas(a_loc, b_loc, rowsum=True, vhalo=vh, **kw)
-    assert m is None
-    assert rows_v.shape == want_rows.shape
-    np.testing.assert_allclose(np.asarray(rows_v), want_rows, atol=3e-5 * w)
-    _, map_c = sp.ssim_parts_pallas(ae, be, with_map=True, **kw)
-    _, map_v = sp.ssim_parts_pallas(a_loc, b_loc, with_map=True, vhalo=vh, **kw)
-    assert map_v.shape == a_loc.shape
-    np.testing.assert_allclose(
-        np.asarray(map_v), np.asarray(map_c)[..., r : r + h, :], atol=8e-6
-    )
-
-
-def test_vhalo_wide_fallback(rng):
-    """Images past the fast path fall back to an internal halo concat on
-    the chunked grid with the same local-rows output contract."""
-    import ssim_tpu.ops.ssim_pallas as sp
-
-    h, w, r = 24, 600, 5
-    a_loc, b_loc, vh, ae, be = _vhalo_window(rng, h, w, r)
-    kw = dict(radius=r, interpret=True, max_tile_w=512)  # force chunked
-    rows_c, _ = sp.ssim_parts_pallas(ae, be, rowsum=True, **kw)
-    want = np.asarray(rows_c)[r : r + h]
-    rows_v, _ = sp.ssim_parts_pallas(a_loc, b_loc, rowsum=True, vhalo=vh, **kw)
-    np.testing.assert_allclose(np.asarray(rows_v), want, atol=3e-5 * w)
-    _, map_c = sp.ssim_parts_pallas(ae, be, with_map=True, **kw)
-    _, map_v = sp.ssim_parts_pallas(a_loc, b_loc, with_map=True, vhalo=vh, **kw)
-    assert map_v.shape == (h, w)
-    np.testing.assert_allclose(
-        np.asarray(map_v), np.asarray(map_c)[r : r + h, :], atol=8e-6
-    )
-
-
-def test_vhalo_edge_replica_matches_clamped(rng):
-    """Edge shards pass replicated edge rows as halos; that must equal
-    the plain clamped-border computation (the reference border rule,
-    src/ssim.cpp:560-582) — the spatial layer's true-image-border case."""
-    import ssim_tpu.ops.ssim_pallas as sp
-
-    h, w, r = 40, 256, 5
-    a = rng.integers(0, 256, (h, w)).astype(np.uint8)
-    b = rng.integers(0, 256, (h, w)).astype(np.uint8)
-    vh = (
-        np.broadcast_to(a[:1], (r, w)).copy(),
-        np.broadcast_to(a[-1:], (r, w)).copy(),
-        np.broadcast_to(b[:1], (r, w)).copy(),
-        np.broadcast_to(b[-1:], (r, w)).copy(),
-    )
-    _, m1 = sp.ssim_parts_pallas(a, b, with_map=True, interpret=True)
-    _, m2 = sp.ssim_parts_pallas(a, b, with_map=True, vhalo=vh,
-                                 interpret=True)
-    np.testing.assert_allclose(np.asarray(m2), np.asarray(m1), atol=8e-6)
-
-
-def test_vhalo_vmask_in_kernel_replicas(rng):
-    """vmask mode (round 5): the halo operands are RAW collective
-    outputs and the KERNEL substitutes the edge replicas, gated on the
-    (is_top, is_bot) flags — so the spatial layer's exchange is two
-    stacked ppermutes with no host-side replica construction (measured
-    2.4x end-to-end, tools/probe_spatial3.py). Garbage halos + both
-    flags set must reproduce the plain clamped computation exactly;
-    an interior window with true halos + zero flags must match the
-    concat window."""
-    import ssim_tpu.ops.ssim_pallas as sp
-
-    h, w, r = 40, 256, 5
-    a = rng.integers(0, 256, (h, w)).astype(np.uint8)
-    b = rng.integers(0, 256, (h, w)).astype(np.uint8)
-    g = lambda: rng.integers(0, 256, (r, w)).astype(np.uint8)
-    _, m1 = sp.ssim_parts_pallas(a, b, with_map=True, interpret=True)
-    _, m2 = sp.ssim_parts_pallas(
-        a, b, with_map=True, vhalo=(g(), g(), g(), g()), vmask=(1.0, 1.0),
-        interpret=True,
-    )
-    np.testing.assert_allclose(np.asarray(m2), np.asarray(m1), atol=8e-6)
-
-    a_loc, b_loc, vh, ae, be = _vhalo_window(rng, 66, 200, r, None)
-    kw = dict(interpret=True, max_tile_h=32)  # ragged + 2-block splice
-    rows_c, _ = sp.ssim_parts_pallas(ae, be, rowsum=True, **kw)
-    rows_v, _ = sp.ssim_parts_pallas(a_loc, b_loc, rowsum=True, vhalo=vh,
-                                     vmask=(0.0, 0.0), **kw)
-    np.testing.assert_allclose(
-        np.asarray(rows_v), np.asarray(rows_c)[r : r + 66], atol=3e-5 * 200
-    )
-
-    # Mixed: top is a true edge (garbage operand + flag), bottom is a
-    # true neighbor (real rows + no flag).
-    h2 = 70
-    A = np.asarray(ae)
-    B = np.asarray(be)
-    a2, b2 = A[:h2], B[:h2]
-    bot_a, bot_b = A[h2 : h2 + r], B[h2 : h2 + r]
-    g2 = lambda: rng.integers(0, 256, (r, a2.shape[1])).astype(np.uint8)
-    rows_w, _ = sp.ssim_parts_pallas(
-        np.concatenate([a2, bot_a]), np.concatenate([b2, bot_b]),
-        rowsum=True, interpret=True,
-    )
-    rows_m, _ = sp.ssim_parts_pallas(
-        a2, b2, rowsum=True, vhalo=(g2(), bot_a, g2(), bot_b),
-        vmask=(1.0, 0.0), interpret=True,
-    )
-    np.testing.assert_allclose(
-        np.asarray(rows_m), np.asarray(rows_w)[:h2], atol=3e-5 * 200
-    )
-
-    with pytest.raises(ValueError, match="vmask requires vhalo"):
-        sp.ssim_parts_pallas(a, b, rowsum=True, vmask=(1.0, 1.0),
-                             interpret=True)
-
-
-def test_vhalo_vmask_wide_fallback(rng):
-    """vmask on the chunked wide fallback: host-side replica
-    substitution ahead of the internal concat."""
-    import ssim_tpu.ops.ssim_pallas as sp
-
-    h, w, r = 24, 600, 5
-    a = rng.integers(0, 256, (h, w)).astype(np.uint8)
-    b = rng.integers(0, 256, (h, w)).astype(np.uint8)
-    g = lambda: rng.integers(0, 256, (r, w)).astype(np.uint8)
-    kw = dict(interpret=True, max_tile_w=512)  # force chunked
-    rows_c, _ = sp.ssim_parts_pallas(a, b, rowsum=True, **kw)
-    rows_v, _ = sp.ssim_parts_pallas(
-        a, b, rowsum=True, vhalo=(g(), g(), g(), g()), vmask=(1.0, 1.0),
-        **kw,
-    )
-    np.testing.assert_allclose(
-        np.asarray(rows_v), np.asarray(rows_c), atol=3e-5 * w
-    )
-
-
-def test_vhalo_float_path(rng):
-    import jax.numpy as jnp
-
-    import ssim_tpu.ops.ssim_pallas as sp
-
-    h, w, r = 30, 200, 5
-    A = rng.random((3 * h + 2 * r, w)).astype(np.float32)
-    B = rng.random((3 * h + 2 * r, w)).astype(np.float32)
-    a_loc, b_loc = A[h : 2 * h], B[h : 2 * h]
-    vh = (A[h - r : h], A[2 * h : 2 * h + r], B[h - r : h], B[2 * h : 2 * h + r])
-    ae = np.concatenate([vh[0], a_loc, vh[1]], axis=-2)
-    be = np.concatenate([vh[2], b_loc, vh[3]], axis=-2)
-    kw = dict(allow_float=True, data_range=1.0, interpret=True)
-    rows_c, _ = sp.ssim_parts_pallas(jnp.asarray(ae), jnp.asarray(be),
-                                     rowsum=True, **kw)
-    want = np.asarray(rows_c)[r : r + h]
-    rows_v, _ = sp.ssim_parts_pallas(
-        jnp.asarray(a_loc), jnp.asarray(b_loc), rowsum=True,
-        vhalo=tuple(jnp.asarray(x) for x in vh), **kw,
-    )
-    np.testing.assert_allclose(np.asarray(rows_v), want, atol=3e-5 * w)
-
-
-def test_vhalo_validation(rng):
-    import ssim_tpu.ops.ssim_pallas as sp
-
-    a, b = random_pair(rng, 32, 64)
-    good = (a[:5], a[-5:], b[:5], b[-5:])
-    with pytest.raises(ValueError, match="vhalo"):
-        sp.ssim_parts_pallas(a, b, vhalo=good, interpret=True)  # partials
-    with pytest.raises(ValueError, match="vhalo"):
-        sp.ssim_parts_pallas(a, b, rowsum=True, vhalo=good[:3],
-                             interpret=True)
-    with pytest.raises(ValueError, match="vhalo"):
-        bad = (a[:4], a[-5:], b[:5], b[-5:])  # wrong halo depth
-        sp.ssim_parts_pallas(a, b, rowsum=True, vhalo=bad, interpret=True)
-    with pytest.raises(ValueError, match="vhalo"):
-        bad = tuple(x.astype(np.float32) for x in good)  # dtype mismatch
-        sp.ssim_parts_pallas(a, b, rowsum=True, vhalo=bad, interpret=True)
+    assert select_impl("auto") == Implementation.PALLAS

@@ -78,9 +78,9 @@ def test_xla_custom_radius_matches_oracle(rng, radius, sigma):
 
 
 @pytest.mark.parametrize("radius,sigma", [(1, 0.8), (3, 1.5), (8, 2.5), (16, 4.0)])
-def test_pallas_fused_custom_radius(rng, radius, sigma):
-    """impl='pallas' + non-default radius rides the FUSED kernel for any
-    radius <= MAX_FUSED_RADIUS (the halo geometry is built from the taps
+def test_pallas_fused_custom_radius(rng, radius, sigma, interpret_kernel):
+    """impl='pallas' + non-default radius rides the fused kernel for any
+    radius <= MAX_FUSED_RADIUS (the taps and the register ring are built
     at trace time) — score and map against the f64 oracle."""
     a, b = random_pair(rng, 33, 47)
     want, want_map = reference.compute_ssim(
@@ -93,7 +93,7 @@ def test_pallas_fused_custom_radius(rng, radius, sigma):
     np.testing.assert_allclose(got_map, want_map, atol=1e-3)
 
 
-def test_pallas_oversized_radius_falls_back_to_xla(rng):
+def test_pallas_oversized_radius_falls_back_to_xla(rng, interpret_kernel):
     """radius > MAX_FUSED_RADIUS silently rides the XLA path (same
     convention as the dtype fallback) and stays correct."""
     a, b = random_pair(rng, 48, 40)
@@ -102,24 +102,18 @@ def test_pallas_oversized_radius_falls_back_to_xla(rng):
     assert got == pytest.approx(want, abs=2e-6)
 
 
-def test_pallas_fused_custom_radius_chunked(rng):
-    """Custom radius on the zero-copy CHUNKED wide-image path (forced
-    via the config gate — the round-4 default gate is 16384) AND on the
-    widened wide fast path (the default route at this width)."""
-    from conftest import force_chunked
-
-    a, b = random_pair(rng, 8, 4400)
+def test_pallas_fused_custom_radius_chunked(rng, interpret_kernel):
+    """Custom radius on a wide image that spans many column tiles of the
+    kernel (the clamped column reads cross every tile boundary)."""
+    a, b = random_pair(rng, 8, 1100)
     want, _ = reference.compute_ssim(a, b, radius=3, sigma=1.2)
     got = compute_ssim(a, b, impl="pallas", radius=3, sigma=1.2)
     assert got == pytest.approx(want, abs=2e-6)
-    with force_chunked():
-        got_c = compute_ssim(a, b, impl="pallas", radius=3, sigma=1.2)
-    assert got_c == pytest.approx(want, abs=2e-6)
 
 
-def test_packed_path_custom_radius(rng):
-    """Custom radius on the lane-packed small-batch path (the gutters are
-    radius-wide, so the packing pitch tracks the window)."""
+def test_packed_path_custom_radius(rng, interpret_kernel):
+    """Custom radius on a small-image batch through the routed kernel
+    (one program per image and tile, so images never mix)."""
     from ssim_tpu.ops.routing import ssim_parts_auto
     from ssim_tpu import engine
     import jax.numpy as jnp
@@ -127,7 +121,7 @@ def test_packed_path_custom_radius(rng):
     a = np.stack([random_pair(rng, 64, 64)[0] for _ in range(4)])
     b = np.clip(a.astype(np.int32) + 7, 0, 255).astype(np.uint8)
     parts, _ = ssim_parts_auto(
-        jnp.asarray(a), jnp.asarray(b), interpret=True, radius=3, sigma=1.2
+        jnp.asarray(a), jnp.asarray(b), radius=3, sigma=1.2
     )
     got = engine.finalize_mean(np.asarray(parts), 64 * 64)
     for i in range(4):
@@ -136,9 +130,9 @@ def test_packed_path_custom_radius(rng):
 
 
 @pytest.mark.parametrize("h,w", [(40, 56), (64, 200)])
-def test_pallas_custom_sigma_k1_k2(rng, h, w):
-    """sigma/k1/k2 ride the fused kernel (interpret mode on CPU), score
-    and map."""
+def test_pallas_custom_sigma_k1_k2(rng, h, w, interpret_kernel):
+    """sigma/k1/k2 ride the fused kernel (the Pallas interpreter on the
+    CPU), score and map."""
     a, b = random_pair(rng, h, w)
     want, want_map = reference.compute_ssim(
         a, b, with_map=True, sigma=2.0, k1=0.02, k2=0.05
@@ -157,9 +151,9 @@ def test_default_kwargs_are_identity(rng):
     )
 
 
-def test_precise_custom_radius_stays_df32(rng):
-    """precision='f64' + custom radius <= 16 keeps the compensated kernel
-    (the df32 tier is radius-generic too)."""
+def test_precise_custom_radius_stays_df32(rng, interpret_kernel):
+    """precision='f64' + custom radius runs the device f64 tier (any
+    radius)."""
     a, b = random_pair(rng, 20, 24)
     want, _ = reference.compute_ssim(a, b, radius=3)
     got = compute_ssim(a, b, impl="pallas", precision="f64", radius=3)
@@ -173,10 +167,9 @@ def test_precise_oversized_radius_uses_oracle(rng):
     assert got == pytest.approx(want, abs=1e-13)
 
 
-def test_precise_float_input_stays_df32(rng):
-    """precision='f64' with float32 inputs rides the kernel's df32 float
-    path (round-4 cliff fix) — accuracy inside the df32 tier, far beyond
-    plain f32."""
+def test_precise_float_input_stays_df32(rng, interpret_kernel):
+    """precision='f64' with float32 inputs runs the device f64 tier —
+    far beyond plain f32."""
     a8, b8 = random_pair(rng, 40, 48)
     a = a8.astype(np.float32) / 255.0
     b = b8.astype(np.float32) / 255.0
@@ -185,9 +178,8 @@ def test_precise_float_input_stays_df32(rng):
     assert got == pytest.approx(want, abs=1e-8)
 
 
-def test_precise_f64_input_keeps_oracle(rng):
-    """f64 inputs would round to f32 before the compensated arithmetic —
-    those keep the host oracle (exact)."""
+def test_precise_f64_input_keeps_oracle(rng, interpret_kernel):
+    """f64 inputs keep every bit on the device f64 tier (no f32 cast)."""
     a8, b8 = random_pair(rng, 24, 24)
     a = a8.astype(np.float64) / 255.0
     b = b8.astype(np.float64) / 255.0
@@ -196,9 +188,9 @@ def test_precise_f64_input_keeps_oracle(rng):
     assert got == pytest.approx(want, abs=1e-13)
 
 
-def test_precise_downsample_stays_df32(rng):
-    """precision='f64' + downsample: pooled images are device f32 and now
-    ride the df32 float path instead of falling to the oracle."""
+def test_precise_downsample_stays_df32(rng, interpret_kernel):
+    """precision='f64' + downsample: pooled images are device f32 and
+    ride the device f64 tier."""
     a, b = random_pair(rng, 64, 64)
     from ssim_tpu.engine import box_decimate
 
@@ -209,12 +201,11 @@ def test_precise_downsample_stays_df32(rng):
     assert got == pytest.approx(want, abs=1e-8)
 
 
-def test_precise_downsample_non_pow2(rng):
+def test_precise_downsample_non_pow2(rng, interpret_kernel):
     """downsample=3 divides by 9 — inexact in f32, so the device-pooled
-    pixels round ONCE before the compensated arithmetic (engine.compute
-    docstring). The result is no longer df32-exact vs the host
-    f64-pooled oracle, but must stay far inside the reference double
-    build's 5e-7 tier."""
+    pixels round ONCE before the f64 arithmetic (engine.compute
+    docstring). The result is not exact vs the host f64-pooled oracle,
+    but must stay far inside the reference double build's 5e-7 tier."""
     a, b = random_pair(rng, 66, 66)
     from ssim_tpu.engine import box_decimate
 
@@ -225,9 +216,9 @@ def test_precise_downsample_non_pow2(rng):
     assert got == pytest.approx(want, abs=3e-7)
 
 
-def test_precise_custom_sigma_stays_df32(rng):
-    """precision='f64' with custom sigma/k1/k2 keeps the compensated
-    kernel path (u8 + radius 5) and lands inside the df32 error tier."""
+def test_precise_custom_sigma_stays_df32(rng, interpret_kernel):
+    """precision='f64' with custom sigma/k1/k2 runs the device f64 tier
+    and lands far inside the double build's error tier."""
     a, b = random_pair(rng, 40, 48)
     want, _ = reference.compute_ssim(a, b, sigma=2.0, k1=0.02, k2=0.05)
     got = compute_ssim(
@@ -355,9 +346,9 @@ def test_jittable_matches_eager_custom_window(rng):
     assert got_r == pytest.approx(want_r, abs=2e-6)
 
 
-def test_fused_backward_custom_sigma_k_matches_xla_vjp(rng):
-    """jax.grad of ssim_loss with custom sigma/k1/k2: the fused analytic
-    backward kernel (sigma-generalized taps, custom c1/c2) vs the XLA
+def test_fused_backward_custom_sigma_k_matches_xla_vjp(rng, interpret_kernel):
+    """jax.grad of ssim_loss with custom sigma/k1/k2 on the kernel path
+    (its XLA-formulation VJP carries the custom window) vs the XLA
     formulation's autodiff."""
     import jax
     import jax.numpy as jnp
@@ -377,9 +368,9 @@ def test_fused_backward_custom_sigma_k_matches_xla_vjp(rng):
     np.testing.assert_allclose(np.asarray(gp_b), np.asarray(gx_b), atol=2e-5)
 
 
-def test_map_cotangent_custom_window(rng):
-    """ssim_and_map's per-pixel map cotangent routes through the fused
-    backward with the custom window too."""
+def test_map_cotangent_custom_window(rng, interpret_kernel):
+    """ssim_and_map's per-pixel map cotangent routes through the kernel
+    path's VJP with the custom window too."""
     import jax
     import jax.numpy as jnp
 
@@ -421,10 +412,9 @@ def test_custom_radius_grad_via_xla(rng):
     assert g[y, x] == pytest.approx(fd, rel=2e-2, abs=1e-6)
 
 
-def test_ms_ssim_custom_sigma_k(rng):
-    """MS-SSIM sigma/k1/k2 (torchmetrics-style): the components-kernel
-    pyramid matches the XLA pyramid, and the fused per-scale backward
-    matches XLA autodiff."""
+def test_ms_ssim_custom_sigma_k(rng, interpret_kernel):
+    """MS-SSIM sigma/k1/k2 (torchmetrics-style) under impl="pallas"
+    match the XLA pyramid, value and gradient, and change the score."""
     import jax
     import jax.numpy as jnp
 
@@ -446,40 +436,29 @@ def test_ms_ssim_custom_sigma_k(rng):
     np.testing.assert_allclose(np.asarray(gp), np.asarray(gx), atol=5e-5)
 
 
-def test_pallas_chunked_path_custom_sigma(rng):
-    """Custom sigma/k1/k2 on the CHUNKED wide-image kernel path (forced
-    via the config gate) and the default wide fast path."""
-    from conftest import force_chunked
-
-    a, b = random_pair(rng, 8, 4400)
+def test_pallas_chunked_path_custom_sigma(rng, interpret_kernel):
+    """Custom sigma/k1/k2 on a wide image spanning many column tiles."""
+    a, b = random_pair(rng, 8, 1100)
     want, _ = reference.compute_ssim(a, b, sigma=2.0, k1=0.02, k2=0.05)
     got = compute_ssim(a, b, impl="pallas", sigma=2.0, k1=0.02, k2=0.05)
     assert got == pytest.approx(want, abs=2e-6)
-    with force_chunked():
-        got_c = compute_ssim(a, b, impl="pallas", sigma=2.0, k1=0.02,
-                             k2=0.05)
-    assert got_c == pytest.approx(want, abs=2e-6)
 
 
-def test_packed_path_custom_sigma_k(rng):
-    """Custom sigma/k1/k2 on the lane-packed small-batch path (the
-    RADIUS-wide gutters isolate any tap values); exercised through
-    ssim_parts_pallas_packed directly plus the auto route."""
-    from ssim_tpu import engine
-    from ssim_tpu.ops.ssim_pallas import pack_preferred, ssim_parts_pallas_packed
-
-    assert pack_preferred(64, 64, itemsize=1)
-    a = np.stack([random_pair(rng, 64, 64)[0] for _ in range(4)])
-    b = np.clip(a.astype(np.int32) + 7, 0, 255).astype(np.uint8)
+def test_packed_path_custom_sigma_k(rng, interpret_kernel):
+    """Custom sigma/k1/k2 on a small-image batch through the kernel
+    directly and through the auto route."""
     import jax.numpy as jnp
 
+    from ssim_tpu import engine
+    from ssim_tpu.ops.ssim_pallas import ssim_parts_pallas
+
+    a = np.stack([random_pair(rng, 64, 64)[0] for _ in range(4)])
+    b = np.clip(a.astype(np.int32) + 7, 0, 255).astype(np.uint8)
     kw = dict(sigma=2.0, k1=0.02, k2=0.05)
-    parts = ssim_parts_pallas_packed(
-        jnp.asarray(a), jnp.asarray(b), interpret=True, **kw
-    )
-    # partials are [(ssim-1) sum, count]; finalize_mean folds the count
-    # back in, yielding mean(ssim) directly.
+    parts, _ = ssim_parts_pallas(jnp.asarray(a), jnp.asarray(b), **kw)
     got = engine.finalize_mean(np.asarray(parts), 64 * 64)
+    got_auto = compute_ssim(a, b, **kw)
     for i in range(4):
         want, _ = reference.compute_ssim(a[i], b[i], **kw)
         assert got[i] == pytest.approx(want, abs=2e-6)
+        assert got_auto[i] == pytest.approx(want, abs=2e-6)

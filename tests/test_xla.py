@@ -72,9 +72,8 @@ def test_batched_matches_single(rng):
         single = compute_ssim(a[i], b[i], impl="xla")
         # Not bitwise: batched and single are separate XLA compiles, and
         # per-shape codegen may contract mul+add into FMAs differently
-        # (measured ~1e-8 on TPU with the per-signal blurs). Orders of
-        # magnitude inside the 2e-6 oracle tier; the fused Pallas kernel
-        # (not this path) is the one that keeps batch invariance tight.
+        # (about 1e-8 with the per-signal blurs). Orders of
+        # magnitude inside the 2e-6 oracle tier.
         assert scores[i] == pytest.approx(single, abs=5e-8)
 
 
